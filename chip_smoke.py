@@ -6,19 +6,34 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
 1. Setup: build the CUDA kernels from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` per source, in parallel), print versions and the card.
 2. Every kernel against its plain PyTorch version on the card, on the same
-   inputs: digits and every per-block counter row equal (tolerance: none,
-   integer results must match exactly, max_abs_err 0), over the program
-   matrix below.
-3. The main path at full size, with every kernel's launch count set to 0
-   before and read after: ``compile_named("add", 3, 20)`` + ``run`` at 2^20
-   rows against numpy, ``multiply`` and ``ripple_sub`` through
-   ``engine="apc"`` against numpy, ``APStats`` of
-   ``engine="apc"`` equal to ``engine="replay"``, ``tap_apply_lut`` /
-   ``tap_ripple_add``, and Table XI (all six width pairs, each against
-   ``engine="replay"`` on the same digits, digits and ``APStats`` equal)
-   priced by the energy model.
-4. Times: CUDA-event medians of each kernel and its plain version at the
-   benchmark shapes, beside each kernel's bound.
+   inputs.  The TAP kernels: digits and every per-block counter row equal
+   (tolerance: none, integer results must match exactly, max_abs_err 0),
+   over the program matrix below and the programs of a small K-tiled MAC.
+   The packed-ternary matmul: fp32 within 1e-4 and bf16 within 5e-2
+   (allclose, atol = rtol), on the reference's test shapes and odd ones,
+   and exact on integer activations.
+3. The main paths at full size, each with every kernel's launch count set
+   to 0 just before it and read just after; each fails if a kernel of the
+   path was not launched.
+   a. AP arithmetic: ``compile_named("add", 3, 20)`` + ``run`` at 2^20 rows
+      against numpy, ``multiply`` and ``ripple_sub`` through
+      ``engine="apc"`` against numpy, ``APStats`` of ``engine="apc"`` equal
+      to ``engine="replay"``, ``tap_apply_lut`` / ``tap_ripple_add``, and
+      Table XI (all six width pairs, each against ``engine="replay"`` on
+      the same digits, digits and ``APStats`` equal) priced by the energy
+      model.
+   b. The packed-ternary matmul at qwen3-0.6b's MLP width (d_model 1024,
+      d_ff 3072): seeded weights packed by ``models.quant``, the SwiGLU MLP
+      through ``ternary_matmul(impl="pallas")`` at 1 to 2048 tokens in fp32
+      and bf16 against the same composition through
+      ``quant.unpack_matmul``; then ``impl="ap"`` with ``k_tile=64`` on
+      integer activations at 4 tokens, bit-identical to ``impl="ref"``,
+      its cycles equal to ``ap_matmul_cycle_counts``, with its wall time
+      and Table XI energy.
+4. Times: CUDA-event medians of each kernel, its plain version and, for the
+   matmul, the library product on a dense weight, beside each kernel's
+   bound, at the main paths' shapes (and qwen2-72b's MLP width for the
+   matmul).
 
 Prints the kernels line (one JSON object) and the card's ``nvidia-smi``
 name and power limit before the last line, which is
@@ -47,11 +62,44 @@ TIMING_PROGRAMS = (("add", 3, 20), ("mul", 3, 5), ("max", 3, 8))
 VARIANTS = ("gather", "onehot", "onehot_packed")
 PAPER_TABLE_XI = {"energy": 12.25, "setreset": 12.6, "area": 6.2}
 
-# H100 SXM peaks (NVIDIA data sheet and Hopper white paper): device memory
-# 3.35 TB/s; INT32 issue 64 lanes per SM x 132 SMs x 1.98 GHz boost clock
-# (the clock behind the 67 TFLOP/s fp32 figure)
+# H100 SXM peaks (NVIDIA data sheet and Hopper white paper, dense, at
+# 700 W): device memory 3.35 TB/s; INT32 issue 64 lanes per SM x 132 SMs x
+# 1.98 GHz boost clock (the clock behind the 67 TFLOP/s fp32 figure); the
+# matmul's operations at the card's peak for x's type: bf16 on the tensor
+# cores 989 TFLOP/s, fp32 outside them 67 TFLOP/s (TF32 would lose the
+# 1e-4 tolerance, so it is not the fp32 peak here)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
+PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+
+# qwen3-0.6b (src/repro/configs/qwen3_0_6b.py) and qwen2-72b
+# (src/repro/configs/qwen2_72b.py) MLP widths: (d_model, d_ff)
+QWEN3_06B = (1024, 3072)
+QWEN2_72B = (8192, 29568)
+# packed-ternary matmul: the reference's kernel test shapes
+# (tests/test_kernels.py), odd ones (M = 1, 3; K = 17, 1000; N = 1, 130)
+# and the main path's two products at 2048 tokens (w1/w3 and w2)
+MATMUL_CHECK_SHAPES = ((8, 16, 8), (32, 256, 128), (100, 300, 96),
+                       (256, 512, 256), (1, 17, 1), (3, 17, 130),
+                       (1, 1000, 130), (3, 1000, 1),
+                       (2048, QWEN3_06B[0], QWEN3_06B[1]),
+                       (2048, QWEN3_06B[1], QWEN3_06B[0]))
+MATMUL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# the packed MLP against unpack_matmul, relative to the output's size:
+# |y - want| <= tol * max|want| + tol * |want|.  bf16 rounds each of the
+# three stages and the plain side rounds x @ w before the scale as well;
+# the seeded qwen3-0.6b MLP reads at most 0.0065 of (max|want| + |want|)
+# (M = 1..2048, outputs about 0.07 with max|want| 0.22-0.38), so 2e-2 is
+# three times that; losing the first 512-wide K chunk of w2 moves the
+# median output by 0.019 against a median limit of 0.007 and fails 79 %
+# of the outputs at M = 128
+MLP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MLP_TOKENS = (1, 16, 128, 2048)
+AP_TOKENS, AP_K_TILE, AP_MAX_ABS = 4, 64, 7
+# ternary-matmul timings: (model, K, N, M), K x N the model's w1
+MATMUL_TIMES = tuple(("qwen3-0.6b", *QWEN3_06B, m) for m in (1, 16, 2048)) + \
+    tuple(("qwen2-72b", *QWEN2_72B, m) for m in (1, 16))
+MATMUL_LINE = ("qwen3-0.6b", 16, "bfloat16")   # the kernels line's row
 
 KERNELS = {
     "tap_run_program": {
@@ -60,6 +108,10 @@ KERNELS = {
     "tap_apply_schedule": {
         "source": "src/repro_torch/kernels/tap_pass/csrc/tap_schedule.cu",
         "replaces": "src/repro/kernels/tap_pass/kernel.py:396"},
+    "ternary_matmul": {
+        "source": "src/repro_torch/kernels/ternary_matmul/csrc/"
+                  "ternary_matmul.cu",
+        "replaces": "src/repro/kernels/ternary_matmul/kernel.py:75"},
 }
 
 
@@ -187,6 +239,115 @@ def phase_kernels_vs_plain(dev, log) -> dict[str, int]:
     return err
 
 
+def allclose_err(y, want, tol: float, atol: float | None = None
+                 ) -> tuple[float, bool]:
+    """max |y - want| and whether |y - want| <= atol + tol * |want| holds
+    everywhere (allclose with rtol = tol and atol = tol unless given; NaN
+    fails)."""
+    d = (y.float() - want.float()).abs()
+    atol = tol if atol is None else atol
+    ok = bool((d <= atol + tol * want.float().abs()).all())
+    return (float(d.max()) if d.numel() else 0.0), ok
+
+
+def packed_weights(k: int, n: int, rng, dev):
+    """Seeded fp32 weights (std 0.05), quantized and packed on the card."""
+    import torch
+    from repro_torch.kernels.ternary_matmul import quantize_and_pack
+    w = torch.from_numpy(rng.normal(0, 0.05, (k, n)).astype(np.float32))
+    return quantize_and_pack(w.to(dev))
+
+
+def phase_matmul_vs_plain(dev, log) -> dict[str, float]:
+    """The ternary-matmul kernel against ``ternary_matmul_ref`` on the
+    card: fp32 / bf16 within MATMUL_TOL, integer activations exact."""
+    import torch
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.kernels.ternary_matmul.ref import (pack_ternary,
+                                                        ternary_matmul_ref)
+    rng = np.random.default_rng(SEED + 3)
+    err = {"float32": 0.0, "bfloat16": 0.0, "integer": 0.0}
+    for m, k, n in MATMUL_CHECK_SHAPES:
+        packed, scale = packed_weights(k, n, rng, dev)
+        x32 = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            x = x32.to(dev, dtype)
+            y = tk.ternary_matmul(x, packed, scale)
+            want = ternary_matmul_ref(x, packed, scale)
+            check(y.dtype == dtype and tuple(y.shape) == (m, n),
+                  f"ternary_matmul {m}x{k}x{n} {name}: got {y.dtype} "
+                  f"{tuple(y.shape)}")
+            e, ok = allclose_err(y, want, MATMUL_TOL[name])
+            err[name] = max(err[name], e)
+            log(f"  ternary_matmul M={m} K={k} N={n} {name} max_abs_err="
+                f"{e:.3e} (tolerance {MATMUL_TOL[name]})")
+            check(ok, f"ternary_matmul {m}x{k}x{n} {name} disagrees")
+    # integer activations: the sums are exact in fp32, so is the product
+    for m, k, n in ((16, 64, 32), (AP_TOKENS, QWEN3_06B[0], QWEN3_06B[1])):
+        w_t = torch.from_numpy(
+            rng.integers(-1, 2, (k, n)).astype(np.int8)).to(dev)
+        x = torch.from_numpy(rng.integers(
+            -AP_MAX_ABS, AP_MAX_ABS + 1, (m, k)).astype(np.float32)).to(dev)
+        packed, ones = pack_ternary(w_t), torch.ones(n, device=dev)
+        y = tk.ternary_matmul(x, packed, ones)
+        e = float((y.double() - x.double() @ w_t.double()).abs().max())
+        err["integer"] = max(err["integer"], e)
+        log(f"  ternary_matmul integers M={m} K={k} N={n} max_abs_err={e}")
+        check(e == 0 and torch.equal(y, ternary_matmul_ref(x, packed, ones)),
+              f"ternary_matmul integers {m}x{k}x{n} not exact")
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_mac_programs_vs_plain(dev, log) -> int:
+    """The program kernel on the programs of a small K-tiled MAC (K = 8,
+    k_tile = 3, radix 3, counters on) against its plain version, at the AP
+    path's row count: encoded MAC rows and raw digits."""
+    import torch
+    from repro_torch import apc
+    from repro_torch.apc.exec import BLOCK_ROWS, device_schedule
+    from repro_torch.kernels.tap_pass import kernel, ref
+    from repro_torch.kernels.tap_pass.ops import _pad_rows
+
+    rng = np.random.default_rng(SEED + 6)
+    radix, K, k_tile = 3, 8, 3
+    width = apc.mac_acc_width(radix, K, AP_MAX_ABS)
+    tiled = apc.compile_mac_tiled(radix, K, width, k_tile)
+    rows = AP_TOKENS * QWEN3_06B[1]
+    cases = []
+    for (lo, hi), prog in zip(tiled.tiles, tiled.programs):
+        x = rng.integers(-AP_MAX_ABS, AP_MAX_ABS + 1, (rows, hi - lo))
+        w = rng.integers(-1, 2, (rows, hi - lo))
+        cases.append((f"tile[{lo}:{hi}] encoded", prog,
+                      apc.encode_mac_rows(x, w, radix, width)))
+    for j, prog in enumerate(tiled.reduce_programs):
+        cases.append((f"reduce{j}", prog, rng.integers(
+            0, radix, (rows, prog.min_cols)).astype(np.int8)))
+    for j, prog in enumerate(tiled.programs + tiled.reduce_programs):
+        cases.append((f"program{j} raw", prog,
+                      raw_digits(rows, prog.min_cols, radix, rng)))
+    err = 0
+    for name, prog, arr in cases:
+        arr = torch.from_numpy(arr).to(dev)
+        padded, _ = _pad_rows(arr, BLOCK_ROWS)
+        sched, _, pack = device_schedule(prog, None, dev)
+        out, counts = kernel.tap_run_program(
+            padded, *sched, rows, block_rows=BLOCK_ROWS, collect_stats=True,
+            pack=pack)
+        want, want_counts = ref.run_program_plain(
+            padded, *sched, rows, block_rows=BLOCK_ROWS, collect_stats=True,
+            pack=pack)
+        e = max(int((out.int() - want.int()).abs().max()),
+                int((counts.long() - want_counts.long()).abs().max()))
+        err = max(err, e)
+        log(f"  tap_run_program mac K={K} k_tile={k_tile} {name} rows={rows}"
+            f" steps={prog.n_steps} max_abs_err={e}")
+        check(e == 0, f"tap_run_program mac {name} disagrees")
+    torch.cuda.synchronize()
+    return err
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -200,6 +361,29 @@ def ripple_oracle(a_d: np.ndarray, b_d: np.ndarray, radix: int):
         out[:, i] = (s % radix).astype(np.int8)
         carry = s // radix
     return out, carry
+
+
+class ProgramLaunches:
+    """Within the block, record every program-kernel launch the executor
+    (``apc.exec``) makes: its input digits, arguments, output digits and
+    counter rows, so that a main path's own launches can be replayed by
+    the plain version.  The launches themselves are unchanged."""
+
+    def __enter__(self):
+        from repro_torch.apc import exec as apc_exec
+        self.module, self.launch = apc_exec, apc_exec.tap_run_program
+        self.calls: list[tuple] = []
+
+        def recorded(padded, *args, **kw):
+            before = padded.clone()
+            out, counts = self.launch(padded, *args, **kw)
+            self.calls.append((before, args, kw, out, counts))
+            return out, counts
+        apc_exec.tap_run_program = recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.module.tap_run_program = self.launch
 
 
 def stats_fields(s) -> tuple:
@@ -337,6 +521,148 @@ def phase_main_path(dev, log) -> dict:
     return res
 
 
+def phase_matmul_path(dev, log) -> dict:
+    """The packed-ternary matmul path at qwen3-0.6b's MLP width."""
+    import torch
+    from repro_torch import apc
+    from repro_torch.core.ap import APStats
+    from repro_torch.core.circuit import CellParams
+    from repro_torch.core.energy import energy_from_stats
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    from repro_torch.kernels.ternary_matmul.ap import ap_matmul_cycle_counts
+    from repro_torch.kernels.ternary_matmul.ref import unpack_ternary
+    from repro_torch.models import quant
+
+    rng = np.random.default_rng(SEED + 4)
+    d, f = QWEN3_06B
+    mlp = {key: torch.from_numpy(
+        rng.normal(0, 0.02, shape).astype(np.float32)).to(dev)
+        for key, shape in (("w1", (d, f)), ("w3", (d, f)), ("w2", (f, d)))}
+    p = quant.pack_mlp_params(mlp)
+    del mlp
+    res: dict = {"mlp": []}
+
+    def swiglu(x, mm):
+        h = (torch.nn.functional.silu(mm(x, p["w1_packed"], p["w1_scale"]))
+             * mm(x, p["w3_packed"], p["w3_scale"]))
+        return mm(h, p["w2_packed"], p["w2_scale"])
+
+    def packed_mm(x, packed, scale):
+        return ternary_matmul(x, packed, scale, impl="pallas")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol = MLP_TOL[name]
+        for m in MLP_TOKENS:
+            x = torch.from_numpy(
+                rng.normal(0, 1, (m, d)).astype(np.float32)).to(dev, dtype)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = swiglu(x, packed_mm)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            want = swiglu(x, quant.unpack_matmul)
+            check(y.dtype == dtype and tuple(y.shape) == (m, d)
+                  and bool(torch.isfinite(y).all()),
+                  f"packed MLP M={m} {name}: bad output")
+            scale = float(want.float().abs().max())
+            e, ok = allclose_err(y, want, tol, atol=tol * scale)
+            res["mlp"].append({"tokens": m, "dtype": name,
+                               "max_abs_err": e, "max_abs_want": scale,
+                               "rtol": tol, "atol": tol * scale,
+                               "wall_ms": wall_ms})
+            log(f"  packed MLP qwen3-0.6b M={m} {name}: max_abs_err {e:.3e}"
+                f" vs unpack_matmul (atol {tol} x max|want| {scale:.4f} = "
+                f"{tol * scale:.3e}, rtol {tol}), {wall_ms:.3f} ms (host "
+                f"clock)")
+            check(ok, f"packed MLP M={m} {name} disagrees with "
+                      f"unpack_matmul")
+
+    # the AP matmul on integer activations, at full width, K-tiled
+    xi = rng.integers(-AP_MAX_ABS, AP_MAX_ABS + 1, (AP_TOKENS, d))
+    xi[0, 0] = AP_MAX_ABS
+    x = torch.from_numpy(xi.astype(np.float32)).to(dev)
+    radix = 3
+    width = apc.mac_acc_width(radix, d, AP_MAX_ABS)
+    t0 = time.perf_counter()
+    cyc = ap_matmul_cycle_counts(radix, d, width, k_tile=AP_K_TILE)
+    compile_s = time.perf_counter() - t0
+    st = APStats(radix=radix)
+    torch.cuda.synchronize()
+    with ProgramLaunches() as launches:
+        t0 = time.perf_counter()
+        y = ternary_matmul(x, p["w1_packed"], p["w1_scale"], impl="ap",
+                           k_tile=AP_K_TILE, stats=st)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(y, ternary_matmul(x, p["w1_packed"], p["w1_scale"],
+                                        impl="ref")),
+          "AP matmul not bit-identical to impl='ref'")
+    # |acc| <= 7 * 1024 < 2^23, so acc -> fp32(acc * scale) is one-to-one:
+    # y equal to the exact product times scale means acc equals it
+    exact = x.double() @ unpack_ternary(p["w1_packed"], torch.float64)
+    check(torch.equal(y, exact.float() * p["w1_scale"][None, :]),
+          "AP matmul accumulator != exact integer product")
+    check((st.n_write_cycles, st.n_compare_cycles)
+          == (cyc["write_cycles"], cyc["compare_cycles"]),
+          f"AP matmul cycles {st.n_write_cycles}/{st.n_compare_cycles} != "
+          f"ap_matmul_cycle_counts {cyc}")
+    res["ap_plain_replay"] = check_ap_launches(launches.calls, st, log)
+    rep = energy_from_stats(st, n_masked=4, params=CellParams(radix=radix))
+    res["ap"] = {"tokens": AP_TOKENS, "k": d, "n": f, "rows": AP_TOKENS * f,
+                 "width": width, "k_tile": AP_K_TILE,
+                 "n_tiles": cyc["n_tiles"], "steps": cyc["steps"],
+                 "write_cycles": st.n_write_cycles,
+                 "compare_cycles": st.n_compare_cycles, "sets": st.sets,
+                 "resets": st.resets, "energy_j": rep.total_j,
+                 "compile_s": compile_s, "wall_ms": wall_ms}
+    log(f"  AP matmul qwen3-0.6b w1 M={AP_TOKENS} (rows {AP_TOKENS * f}, "
+        f"width {width}, {cyc['n_tiles']} tiles of {AP_K_TILE} + reduction,"
+        f" {cyc['steps']} steps): bit-identical to impl='ref' and to the "
+        f"exact integer product; write/compare cycles {st.n_write_cycles}/"
+        f"{st.n_compare_cycles} == ap_matmul_cycle_counts; sets "
+        f"{st.sets} resets {st.resets}; Table XI energy "
+        f"{rep.total_j * 1e9:.3f} nJ; host compile {compile_s:.3f} s, run "
+        f"{wall_ms:.3f} ms (host clock, counters on, launches recorded)")
+    return res
+
+
+def check_ap_launches(calls: list[tuple], st, log) -> dict:
+    """The AP matmul's own program-kernel launches: their counter rows sum
+    to its ``APStats``, and the first tile program and the last reduction
+    program, replayed on every row of their recorded inputs by the plain
+    version, give the same digits and the same counter rows."""
+    import torch
+    from repro_torch.kernels.tap_pass import ref
+
+    counts = torch.cat([c for *_, c in calls]).long().sum(dim=0).cpu()
+    hist = tuple(int(h) for h in counts[2:])
+    check((int(counts[0]), int(counts[1]), hist) ==
+          (st.sets, st.resets, tuple(int(h) for h in st.mismatch_hist)),
+          f"AP matmul: the launches' counter rows {counts.tolist()} do not "
+          f"sum to APStats {st}")
+    res = {}
+    for label, (before, args, kw, out, counts) in (("tile0", calls[0]),
+                                                     ("reduce", calls[-1])):
+        t0 = time.perf_counter()
+        want, want_counts = ref.run_program_plain(before, *args, **kw)
+        plain_s = time.perf_counter() - t0
+        e = max(int((out.int() - want.int()).abs().max()),
+                int((counts.long() - want_counts.long()).abs().max()))
+        res[label] = {"rows": args[-1], "cols": before.shape[1],
+                      "slots": args[0].shape[0], "counter_rows":
+                      counts.shape[0], "max_abs_err": e, "plain_s": plain_s}
+        log(f"  AP matmul {label} launch ({args[-1]} rows, "
+            f"{before.shape[1]} columns, {args[0].shape[0]} slots) replayed "
+            f"by the plain version in {plain_s:.3f} s: digits and "
+            f"{counts.shape[0]} counter rows max_abs_err={e}")
+        check(e == 0, f"AP matmul {label} launch disagrees with the plain "
+                      f"version")
+    log(f"  AP matmul: {len(calls)} launches, counter rows sum to APStats "
+        f"(sets {st.sets}, resets {st.resets}, hist {hist})")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: times and bounds
 # ---------------------------------------------------------------------------
@@ -374,10 +700,11 @@ def program_bound(sched, rows: int, cols: int, sets: int) -> dict:
     return bound(n_bytes, ops)
 
 
-def bound(n_bytes: int, ops: int) -> dict:
+def bound(n_bytes: int, ops: int,
+          peak_ops_per_s: float = PEAK_INT32_OPS_PER_S) -> dict:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
-    return {"bytes": n_bytes, "int_ops": ops, "bytes_ms": t_bytes,
+    t_ops = ops / peak_ops_per_s * 1e3
+    return {"bytes": n_bytes, "ops": ops, "bytes_ms": t_bytes,
             "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -460,6 +787,112 @@ def phase_times(dev, card: str, log) -> list[dict]:
     return rows_out
 
 
+def phase_matmul_times(dev, card: str, log) -> list[dict]:
+    """Ternary-matmul kernel, plain version and library product (a dense
+    weight in x's dtype, no TF32) at the MLP shapes, and the program
+    kernel on the AP matmul's tile and reduction programs."""
+    import torch
+    from repro_torch import apc
+    from repro_torch.apc.exec import BLOCK_ROWS, device_schedule
+    from repro_torch.kernels.tap_pass import kernel
+    from repro_torch.kernels.tap_pass.ops import _pad_rows
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.kernels.ternary_matmul.ref import (
+        PACK, pack_ternary, ternary_matmul_ref, unpack_ternary)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    chunk = 1024                         # rows per pack/unpack step
+    rows_out = []
+    weights: dict = {}
+    for model, k, n, m in MATMUL_TIMES:
+        if (k, n) not in weights:
+            weights.clear()              # free the previous model's
+            torch.cuda.empty_cache()
+            packed = torch.empty((k // PACK, n), dtype=torch.int32,
+                                 device=dev)
+            for lo in range(0, k, chunk):
+                trits = torch.randint(-1, 2, (min(chunk, k - lo), n),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int8)
+                packed[lo // PACK:(lo + len(trits)) // PACK] = (
+                    pack_ternary(trits))
+            scale = torch.rand(n, generator=gen, device=dev) * 0.04 + 0.01
+            weights[(k, n)] = (packed, scale, {})
+        packed, scale, dense = weights[(k, n)]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            if dtype not in dense:
+                w = torch.empty((k, n), dtype=dtype, device=dev)
+                for lo in range(0, k, chunk):
+                    w[lo:lo + chunk] = unpack_ternary(
+                        packed[lo // PACK:(lo + chunk) // PACK], dtype)
+                dense[dtype] = (w, scale.to(dtype))
+            w, sc = dense[dtype]
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            ms = event_ms(lambda: tk.ternary_matmul(x, packed, scale),
+                          reps=5, inner=20)
+            plain_ms = event_ms(
+                lambda: ternary_matmul_ref(x, packed, scale), reps=3,
+                inner=1)
+            library_ms = event_ms(lambda: torch.matmul(x, w) * sc, reps=5,
+                                  inner=20)
+            size = x.element_size()
+            b = bound(m * k * size + k * n // 4 + m * n * size, 2 * m * k * n,
+                      PEAK_FLOP_PER_S[name])
+            row = {"kernel": "ternary_matmul", "model": model, "m": m,
+                   "k": k, "n": n, "dtype": name, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms, **b,
+                   "card": card}
+            rows_out.append(row)
+            log(f"  time ternary_matmul {model} w1 M={m} K={k} N={n} {name}"
+                f" kernel {ms:.6f} ms, plain {plain_ms:.3f} ms, library "
+                f"{library_ms:.6f} ms, bound {b['bound_ms']:.6f} ms "
+                f"({b['bound_by']}: bytes {b['bytes_ms']:.6f} ms, {name} "
+                f"ops {b['ops_ms']:.6f} ms), card {card}")
+    weights.clear()
+    torch.cuda.empty_cache()
+
+    # the program kernel at the AP matmul's shape
+    rng = np.random.default_rng(SEED + 7)
+    d, f = QWEN3_06B
+    radix, rows = 3, AP_TOKENS * f
+    width = apc.mac_acc_width(radix, d, AP_MAX_ABS)
+    tiled = apc.compile_mac_tiled(radix, d, width, AP_K_TILE)
+    x = rng.integers(-AP_MAX_ABS, AP_MAX_ABS + 1, (rows, AP_K_TILE))
+    w = rng.integers(-1, 2, (rows, AP_K_TILE))
+    n_parts = tiled.reduce_groups[0]
+    cases = [(f"mac{radix} tile K{AP_K_TILE} w{width}", tiled.programs[0],
+              apc.encode_mac_rows(x, w, radix, width)),
+             (f"mac{radix} reduce {n_parts}x w{width}",
+              tiled.reduce_programs[0],
+              rng.integers(0, radix, (rows, tiled.reduce_programs[0]
+                                      .min_cols)).astype(np.int8))]
+    for label, prog, arr in cases:
+        arr = torch.from_numpy(arr).to(dev)
+        padded, _ = _pad_rows(arr, BLOCK_ROWS)
+        sched, variant, pack = device_schedule(prog, None, dev)
+
+        def run_kernel():
+            return kernel.tap_run_program(
+                padded, *sched, rows, block_rows=BLOCK_ROWS,
+                collect_stats=True, pack=pack)
+        _, counts = run_kernel()
+        sets = int(counts[:, 0].long().sum())
+        ms = event_ms(run_kernel, reps=3, inner=1)
+        b = program_bound(sched, rows, padded.shape[1], sets)
+        row = {"kernel": "tap_run_program", "program": label,
+               "steps": prog.n_steps, "rows": rows, "cols": padded.shape[1],
+               "variant": variant, "pack": pack, "collect_stats": True,
+               "ms": ms, "plain_ms": None, **b, "card": card}
+        rows_out.append(row)
+        log(f"  time tap_run_program {label} rows={rows} cols="
+            f"{padded.shape[1]} steps={prog.n_steps} kernel {ms:.6f} ms per "
+            f"launch, bound {b['bound_ms']:.6f} ms ({b['bound_by']}), card "
+            f"{card}")
+    return rows_out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -476,17 +909,42 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
+        from repro_torch.kernels import cuda_lib
         from repro_torch.kernels.tap_pass import kernel
+        from repro_torch.kernels.ternary_matmul import kernel as tk
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}",
               file=sys.stderr)
         return 2
+    # every float32 product on the card in full fp32: the library times and
+    # the plain versions alike
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
     report: dict = {"card": card}
+    counters = (kernel.launch_counts, tk.launch_counts)
 
     def log(msg: str) -> None:
         print(msg, flush=True)
+
+    def main_path(label: str, phase, kernels: tuple[str, ...]):
+        """Run one main path with every launch count set to 0 just before
+        it and read just after; each of ``kernels`` must have launched."""
+        for counts in counters:
+            for k in counts:
+                counts[k] = 0
+        t0 = time.perf_counter()
+        res = phase(dev, log)
+        torch.cuda.synchronize()
+        launched = {k: n for counts in counters for k, n in counts.items()}
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"] = launched
+        log(f"  launches on the {label} path: {launched}")
+        for k in kernels:
+            check(launched[k] > 0, f"{k} was not launched on the {label} "
+                                   f"path")
+        return res
 
     t_start = time.perf_counter()
     try:
@@ -495,44 +953,62 @@ def main() -> int:
             f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
         log(f"[setup] nvidia-smi: {card}")
         t0 = time.perf_counter()
-        kernel.build()
-        log(f"[setup] kernels built in {time.perf_counter() - t0:.3f} s")
-        for name, text in kernel.build_logs.items():
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[setup] {name}: {line.strip()}")
+        cuda_lib.build()
+        report["build_s"] = time.perf_counter() - t0
+        log(f"[setup] kernels built in {report['build_s']:.3f} s")
+        report["ptxas"] = {}
+        for name, text in cuda_lib.build_logs.items():
+            report["ptxas"][name] = [
+                line.strip() for line in text.splitlines()
+                if "registers" in line or "spill" in line]
+            for line in report["ptxas"][name]:
+                log(f"[setup] {name}: {line}")
 
         log("[kernels vs plain]")
         max_err = phase_kernels_vs_plain(dev, log)
+        max_err["tap_run_program"] = max(max_err["tap_run_program"],
+                                         phase_mac_programs_vs_plain(dev,
+                                                                     log))
+        report["matmul_vs_plain"] = phase_matmul_vs_plain(dev, log)
+        max_err["ternary_matmul"] = max(report["matmul_vs_plain"].values())
 
-        log("[main path]")
-        for k in kernel.launch_counts:
-            kernel.launch_counts[k] = 0
-        t0 = time.perf_counter()
-        report["main_path"] = phase_main_path(dev, log)
-        torch.cuda.synchronize()
-        launches = dict(kernel.launch_counts)
-        report["main_path"]["seconds"] = time.perf_counter() - t0
-        log(f"  launches on the main path: {launches}")
-        for k, n in launches.items():
-            check(n > 0, f"{k} was not launched on the main path")
+        log("[main path: AP arithmetic]")
+        report["main_path"] = main_path(
+            "AP arithmetic", phase_main_path,
+            ("tap_run_program", "tap_apply_schedule"))
+        log("[main path: packed-ternary matmul, qwen3-0.6b MLP width]")
+        report["matmul_path"] = main_path(
+            "packed-ternary matmul", phase_matmul_path,
+            ("ternary_matmul", "tap_run_program"))
+        launches = {k: report["main_path"]["launches"][k]
+                    + report["matmul_path"]["launches"][k] for k in KERNELS}
 
         log("[times]")
         report["times"] = phase_times(dev, card, log)
+        report["times"] += phase_matmul_times(dev, card, log)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    def line_row(name):
+        if name == "ternary_matmul":
+            model, m, dtype = MATMUL_LINE
+            return next(x for x in report["times"] if x["kernel"] == name
+                        and x["model"] == model and x["m"] == m
+                        and x["dtype"] == dtype)
+        return next(x for x in report["times"] if x["kernel"] == name
+                    and x.get("rows") == FULL_ROWS)
+
     kernels_line = []
     for name, meta in KERNELS.items():
-        t = next(x for x in report["times"] if x["kernel"] == name
-                 and x["rows"] == FULL_ROWS)
+        t = line_row(name)
         kernels_line.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": launches[name],
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms")})
     report["kernels"] = kernels_line
     report["seconds"] = time.perf_counter() - t_start
     if args.json:

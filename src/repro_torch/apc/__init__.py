@@ -25,6 +25,12 @@ IR / compiler concept        Paper concept
 ``stats.TracedStats``        The functional co-simulator counters (§VI:
                              Table V set/reset rules, mismatch histogram for
                              the matchline energy model) from the kernel.
+``mac.compile_mac``          The ternary dot product as one program: K
+                             predicated add/sub sweeps on an accumulator
+                             (``compile_mac_tiled`` splits K into tiles
+                             folded by ripple-add reductions).
+``pool.run_mac_tiled``       The K-tiled MAC on the executor, tile by tile,
+                             folded by ``graph.mac_fold_plan``.
 ==========================  =================================================
 
 Typical use::
@@ -37,8 +43,14 @@ Typical use::
 or via the drivers: ``repro_torch.core.ap.ripple_add(..., engine="apc")``.
 """
 from . import exec as exec  # noqa: PLC0414 — re-export the module
-from . import ir, lower, metrics as metrics_mod, stats, trace as trace_mod
+from . import (caches as caches_mod, graph as graph_mod, ir, lower, mac,
+               metrics as metrics_mod, pool as pool_mod, stats,
+               trace as trace_mod)
+from .caches import (ResidentError, ResidentEvicted, ResidentHandle,
+                     ResidentStale, ResidentStore, cache_stats,
+                     clear_compile_caches)
 from .exec import execute, run
+from .graph import CARRIED, FoldStage, fold_stage_input, mac_fold_plan
 from .ir import (AffineCol, ApplyLUT, CompareWrite, ForDigit, Program,
                  RelCol, SetCol, ZeroCol, digit)
 from .lower import (KERNEL_VARIANTS, CompiledProgram, PackedProgram, Step,
@@ -47,17 +59,31 @@ from .lower import (KERNEL_VARIANTS, CompiledProgram, PackedProgram, Step,
                     multiply_program, negate_program, pack_steps,
                     resolve_schedule, ripple_add_program,
                     ripple_sub_program)
+from .mac import (SUPPORT_DENSE, TiledMac, assemble_mac_rows_jnp,
+                  compile_mac, compile_mac_reduce, compile_mac_tiled,
+                  decode_mac_acc, decode_mac_acc_jnp,
+                  decode_signed_digits_jnp, encode_mac_rows,
+                  encode_mac_rows_jnp, encode_mac_x_rows_jnp,
+                  encode_weight_digits_jnp, mac_acc_width, mac_layout,
+                  mac_program, mac_reduce_program, mac_weight_support,
+                  matmul_mac_rows, weight_digest)
 from .metrics import MetricsRegistry, get_registry
-from .stats import TracedStats, accumulate, to_ap_stats
+from .pool import run_mac_tiled
+from .stats import TracedStats, accumulate, mac_sparsity, to_ap_stats
 from .trace import (Tracer, current_tracer, global_tracer,
                     reset_global_tracer, tracing, validate_chrome_trace)
 
 __all__ = [
-    "exec", "ir", "lower", "metrics_mod", "stats", "trace_mod",
+    "caches_mod", "exec", "graph_mod", "ir", "lower", "mac", "metrics_mod",
+    "pool_mod", "stats", "trace_mod",
     "MetricsRegistry", "get_registry",
     "Tracer", "current_tracer", "global_tracer", "reset_global_tracer",
     "tracing", "validate_chrome_trace",
+    "cache_stats", "clear_compile_caches",
+    "ResidentError", "ResidentEvicted", "ResidentHandle", "ResidentStale",
+    "ResidentStore",
     "execute", "run",
+    "CARRIED", "FoldStage", "fold_stage_input", "mac_fold_plan",
     "AffineCol", "ApplyLUT", "CompareWrite", "ForDigit", "Program", "RelCol",
     "SetCol", "ZeroCol", "digit",
     "KERNEL_VARIANTS", "CompiledProgram", "PackedProgram", "Step",
@@ -65,5 +91,13 @@ __all__ = [
     "elementwise_program", "lower_program", "multiply_program",
     "negate_program", "pack_steps", "resolve_schedule",
     "ripple_add_program", "ripple_sub_program",
-    "TracedStats", "accumulate", "to_ap_stats",
+    "SUPPORT_DENSE", "TiledMac", "assemble_mac_rows_jnp", "compile_mac",
+    "compile_mac_reduce", "compile_mac_tiled",
+    "decode_mac_acc", "decode_mac_acc_jnp", "decode_signed_digits_jnp",
+    "encode_mac_rows", "encode_mac_rows_jnp", "encode_mac_x_rows_jnp",
+    "encode_weight_digits_jnp", "mac_acc_width", "mac_layout",
+    "mac_program", "mac_reduce_program", "mac_weight_support",
+    "matmul_mac_rows", "weight_digest",
+    "run_mac_tiled",
+    "TracedStats", "accumulate", "mac_sparsity", "to_ap_stats",
 ]

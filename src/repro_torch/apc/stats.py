@@ -29,7 +29,8 @@ from ..kernels.tap_pass.ref import HIST_BINS
 from . import trace
 from .lower import CompiledProgram
 
-__all__ = ["HIST_BINS", "TracedStats", "accumulate", "to_ap_stats"]
+__all__ = ["HIST_BINS", "TracedStats", "accumulate", "mac_sparsity",
+           "to_ap_stats"]
 
 
 class TracedStats(NamedTuple):
@@ -99,3 +100,30 @@ def accumulate(stats: APStats, traced: TracedStats,
                      write_cycles=compiled.n_write_cycles, n_rows=n_rows,
                      mismatch_hist=tuple(int(h) for h in hist), label=label)
     return stats
+
+
+def mac_sparsity(tiled) -> dict[str, float | int]:
+    """Measured sparsity-compression report of a K-tiled MAC program
+    (:class:`~repro_torch.apc.mac.TiledMac`): weight zero fraction implied
+    by the support masks, pruned vs emitted predicated passes, and the cycle
+    reduction vs the unpruned program."""
+    dense_w = (tiled.dense_write_cycles if tiled.dense_write_cycles
+               is not None else tiled.n_write_cycles)
+    dense_c = (tiled.dense_compare_cycles if tiled.dense_compare_cycles
+               is not None else tiled.n_compare_cycles)
+    return {
+        "emitted_passes": tiled.n_emitted_passes,
+        "pruned_passes": tiled.n_pruned_passes,
+        "dense_passes": tiled.n_dense_passes,
+        "pass_prune_frac": tiled.n_pruned_passes / max(1,
+                                                       tiled.n_dense_passes),
+        "write_cycles": tiled.n_write_cycles,
+        "compare_cycles": tiled.n_compare_cycles,
+        "dense_write_cycles": dense_w,
+        "dense_compare_cycles": dense_c,
+        "pruned_write_cycles": dense_w - tiled.n_write_cycles,
+        "pruned_compare_cycles": dense_c - tiled.n_compare_cycles,
+        "write_cycle_reduction": 1.0 - tiled.n_write_cycles / max(1, dense_w),
+        "compare_cycle_reduction": 1.0 - tiled.n_compare_cycles / max(
+            1, dense_c),
+    }

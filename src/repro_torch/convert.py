@@ -1,18 +1,21 @@
-"""Carry programs and counters over from the reference's plain arrays.
+"""Carry programs, counters and weights over from the reference's arrays.
 
-The JAX package compiles programs the port cannot compile yet (the MAC
-family).  Its :class:`CompiledProgram` is plain numpy underneath, so
+The reference's :class:`CompiledProgram` is plain numpy underneath, so
 :func:`compiled_from_arrays` rebuilds the port's program from the six
 schedule tensors, and :func:`ap_stats_from_fields` rebuilds an
 :class:`APStats` from the reference's fields: the two are what a test needs
 to run the same program through both executors and compare the results.
+:func:`packed_mlp_from_arrays` carries packed ternary MLP weights across,
+so both packages multiply by the same words and scales.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .apc.lower import CompiledProgram, Step
 from .core.ap import APStats
+from .device import resolve_device
 
 
 def compiled_from_arrays(cmp_cols, keys, key_valid, hist_flag, wr_cols,
@@ -49,3 +52,20 @@ def ap_stats_from_fields(radix: int, n_rows: int = 0,
     if mismatch_hist is not None:
         stats.mismatch_hist = np.asarray(mismatch_hist, np.int64).copy()
     return stats
+
+
+def packed_mlp_from_arrays(params: dict, device=None) -> dict:
+    """The reference's packed MLP parameters as the port's tensors.
+
+    ``params`` is the dict :func:`repro.models.quant.pack_mlp_params`
+    returns (``w1_packed``, ``w1_scale``, ...), each leaf converted to numpy
+    by the caller.  Returns the same keys as tensors on ``device``
+    (``None`` = ``cuda:0``): ``*_packed`` int32 words, ``*_scale`` fp32.
+    """
+    dev = resolve_device(device)
+    out = {}
+    for key, val in params.items():
+        dtype = torch.int32 if key.endswith("_packed") else torch.float32
+        out[key] = torch.from_numpy(np.array(val)).to(
+            device=dev, dtype=dtype)
+    return out

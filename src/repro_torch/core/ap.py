@@ -420,3 +420,85 @@ def multiply(arr, lut_add: LUT, lut_half: LUT, width: int, radix: int,
                                     stats.n_compare_cycles += 1
                                     stats.n_write_cycles += 1
         return arr
+
+
+def mac(arr, lut_add: LUT, lut_rsub: LUT, K: int, width: int,
+        x_base: int = 0, w_base: int | None = None,
+        acc_base: int | None = None, carry_col: int | None = None,
+        stats: APStats | None = None, zero_acc: bool = True,
+        engine: str = "replay", pool=None,
+        kernel_variant: str | None = None, device=None) -> torch.Tensor:
+    """ACC <- sum_k w_k * X_k: ternary multiply-accumulate (dot product).
+
+    Weight digits W_k store trit+1 in {0,1,2}; for each k one full-adder
+    sweep predicated on W_k == 2 (ACC += X_k) and one rev-subtractor sweep
+    predicated on W_k == 0 (ACC -= X_k) run over the accumulator digits.
+    Arithmetic wraps mod r^width (radix complement), so no carry ripples
+    past the accumulator and negative operands/sums are free.  Default
+    layout [X_0..X_{K-1} | W(K) | ACC | C] per
+    :func:`repro_torch.apc.mac_layout`.
+    """
+    from ..apc.mac import W_MINUS, W_PLUS, mac_layout, mac_program
+    lay = mac_layout(K, width)
+    w_base = lay["w_base"] if w_base is None else w_base
+    acc_base = lay["acc_base"] if acc_base is None else acc_base
+    carry_col = lay["carry_col"] if carry_col is None else carry_col
+    arr = as_digits(arr, device)
+    with _tspan("mac", rows=int(arr.shape[0]), k=K, width=width,
+                engine=engine):
+        if engine == "apc":
+            return _run_apc(arr, mac_program(
+                lut_add, lut_rsub, K, width, x_base, w_base, acc_base,
+                carry_col, zero_acc), stats, pool, kernel_variant,
+                arr.device)
+        if zero_acc:
+            for j in range(width):
+                arr = _set_col(arr, acc_base + j, 0, stats)
+        for k in range(K):
+            arr = _zero_col(arr, carry_col, stats)
+            for i in range(width):
+                arr = _apply(arr, lut_add,
+                             (x_base + k * width + i, acc_base + i,
+                              carry_col),
+                             ((w_base + k, W_PLUS),), stats)
+            arr = _zero_col(arr, carry_col, stats)
+            for i in range(width):
+                arr = _apply(arr, lut_rsub,
+                             (x_base + k * width + i, acc_base + i,
+                              carry_col),
+                             ((w_base + k, W_MINUS),), stats)
+        return arr
+
+
+def mac_tiled(x, w_ter, radix: int, width: int, *, k_tile: int, pool=None,
+              runtime=None, stats: APStats | None = None,
+              blocked: bool = False, kernel_variant: str | None = None,
+              device=None) -> torch.Tensor:
+    """Driver for the K-tiled ternary MAC: ACC = sum_k w_k * x_k from raw
+    operands (``x`` [R, K] integers, ``w_ter`` [R, K] in {-1, 0, +1}).
+
+    Encoding is on the device; the reduction axis splits into
+    ``k_tile``-term partial-sum programs whose radix-complement
+    accumulators fold through a ripple-add reduction chain
+    (:func:`repro_torch.apc.compile_mac_tiled`) — bit-exact vs the untiled
+    :func:`mac` at the same width.  Returns the signed int32 dot products.
+    ``pool=`` (the array bank) and ``runtime=`` (the graph runtime) are not
+    ported yet and raise.
+    """
+    from .. import apc
+    if runtime is not None:
+        raise NotImplementedError(
+            "runtime= (the program-graph runtime) is not ported yet: it "
+            "comes with the graph runtime (ROADMAP queue 1, item 6)")
+    if pool is not None:
+        raise NotImplementedError(
+            "pool= (the bounded array bank) is not ported yet: it comes "
+            "with the array pool (ROADMAP queue 1, item 5)")
+    K = x.shape[1]
+    with _tspan("mac_tiled", rows=int(x.shape[0]), k=K, width=width,
+                k_tile=k_tile, route="plain"):
+        tiled = apc.compile_mac_tiled(radix, K, width, k_tile,
+                                      blocked=blocked)
+        return apc.run_mac_tiled(x, w_ter, tiled, stats=stats,
+                                 kernel_variant=kernel_variant,
+                                 device=device)

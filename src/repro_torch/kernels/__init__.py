@@ -4,9 +4,13 @@ tap_pass        — fused MvAP LUT-schedule application: the whole compare/
                   write schedule runs on rows staged in shared memory, one
                   device-memory read and one write per row instead of a
                   round trip per pass.
+ternary_matmul  — packed balanced-ternary (2-bit) weight matmul: weights held
+                  16-per-int32 in device memory and decoded in registers,
+                  fp32 accumulation — the serving path's weight-byte lever.
 
-Each kernel ships kernel.py (ctypes wrapper + build + launch counter),
-csrc/*.cu (the CUDA source), ops.py (public wrappers) and ref.py (the plain
-PyTorch versions: the oracle, and the path for tensors on the CPU).
+Each kernel ships kernel.py (ctypes wrapper + launch counter), csrc/*.cu
+(the CUDA source), ops.py (public wrappers) and ref.py (the plain PyTorch
+versions: the oracle, and the path for tensors on the CPU).  All of them
+build through :mod:`.cuda_lib`.
 """
-from . import tap_pass  # noqa: F401
+from . import cuda_lib, tap_pass, ternary_matmul  # noqa: F401

@@ -16,24 +16,19 @@ A wrapper given a tensor on the CPU runs the plain version from
 ``launch_counts`` counts kernel launches per wrapper (plain runs do not
 count).
 
-Build: at first use each source is compiled by ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface under ``build/repro_torch/`` at the
-root of the checkout (named by a hash of the sources and flags, so a stale
-build is never loaded), then loaded with ``ctypes``.  :func:`build` compiles
-several at once, one ``nvcc`` process per source.
+Both build through :mod:`repro_torch.kernels.cuda_lib`: ``nvcc`` for
+``sm_90a`` at first use, loaded with ``ctypes``.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from .. import cuda_lib
+from ..cuda_lib import I32 as _I, I64 as _LL, VP as _VP
 from .ref import HIST_BINS, Step, apply_schedule, run_program_plain
 
 BLOCK_ROWS = 1024
@@ -45,85 +40,17 @@ MAX_THREADS = 256
 launch_counts = {"tap_run_program": 0, "tap_apply_schedule": 0}
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-_SOURCES = {"tap_program": "tap_program.cu",
-            "tap_schedule": "tap_schedule.cu"}
 _HEADERS = ("tap_common.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = {
-    "tap_program": ("tap_run_program_launch",
-                    [_VP, _VP, _LL, _I, _I, _LL, _VP, _VP, _VP, _VP, _VP,
-                     _VP, _I, _I, _I, _I, _I, _VP, _I, _VP]),
-    "tap_schedule": ("tap_apply_schedule_launch",
-                     [_VP, _VP, _LL, _I, _VP, _VP, _VP, _VP, _VP, _I, _I,
-                      _I, _I, _I, _I, _VP]),
-}
-_libs: dict[str, ctypes.CDLL] = {}
-build_logs: dict[str, str] = {}   # nvcc's output (ptxas -v) per library
-
-
-# ---------------------------------------------------------------------------
-# Build and load
-# ---------------------------------------------------------------------------
-
-def _library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fname in (_SOURCES[name],) + _HEADERS:
-        h.update((_CSRC / fname).read_bytes())
-    return _BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("CUDA toolkit not found: nvcc is needed to build "
-                           "the TAP kernels")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build(names=tuple(_SOURCES)) -> dict[str, Path]:
-    """Compile every named library that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns the library paths."""
-    paths = {n: _library_path(n) for n in names}
-    todo = {n: p for n, p in paths.items() if not p.exists()}
-    if todo:
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        procs = {}
-        for n, p in todo.items():
-            tmp = p.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                   str(_CSRC / _SOURCES[n])]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT,
-                                         text=True), tmp)
-        failed = []
-        for n, (proc, tmp) in procs.items():
-            log, _ = proc.communicate()
-            build_logs[n] = log
-            if proc.returncode:
-                failed.append(f"{n}: nvcc exit {proc.returncode}\n{log}")
-            else:
-                os.replace(tmp, paths[n])
-        if failed:
-            raise RuntimeError("TAP kernel build failed:\n" +
-                               "\n".join(failed))
-    return paths
-
-
-def _library(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build((name,))[name]))
-        fn_name, argtypes = _ARGTYPES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return lib
+cuda_lib.register(cuda_lib.CudaLibrary(
+    "tap_program", _CSRC, "tap_program.cu", _HEADERS,
+    "tap_run_program_launch",
+    (_VP, _VP, _LL, _I, _I, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+     _I, _I, _VP, _I, _VP)))
+cuda_lib.register(cuda_lib.CudaLibrary(
+    "tap_schedule", _CSRC, "tap_schedule.cu", _HEADERS,
+    "tap_apply_schedule_launch",
+    (_VP, _VP, _LL, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+     _VP)))
 
 
 def _threads(cols: int, rows_per_cta: int, extra_smem: int = 0) -> int:
@@ -168,11 +95,6 @@ def _check_cuda_digits(arr: torch.Tensor, what: str) -> None:
     if arr.dtype != torch.int8 or arr.dim() != 2:
         raise ValueError(f"{what}: digits must be a 2-D int8 tensor, got "
                          f"{arr.dtype} of shape {tuple(arr.shape)}")
-
-
-def _check_status(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -243,16 +165,16 @@ def _launch_program(arr, sched, n_valid, block_rows, collect_stats, pack):
     if -(-block_rows // threads) > 65535:
         raise ValueError(f"block_rows={block_rows} needs more than 65535 "
                          f"CTAs per block")
-    lib = _library("tap_program")
+    launch = cuda_lib.entry("tap_program")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tap_run_program_launch(
+        err = launch(
             arr.data_ptr(), out.data_ptr(), rows, cols, block_rows, n_valid,
             cmp_cols.data_ptr(), keys.data_ptr(), key_valid.data_ptr(),
             hist_flag.data_ptr(), wr_cols.data_ptr(), wr_vals.data_ptr(),
             n_slots // pack, pack, K, C, W,
             counts.data_ptr() if collect_stats else None, threads, stream)
-    _check_status(err, "tap_run_program")
+    cuda_lib.check_status(err, "tap_run_program")
     launch_counts["tap_run_program"] += 1
     return out, counts
 
@@ -326,13 +248,13 @@ def _launch_schedule(arr, schedule):
     if rows == 0:
         return out
     threads = _threads(cols, rows, sched_bytes)
-    lib = _library("tap_schedule")
+    launch = cuda_lib.entry("tap_schedule")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tap_apply_schedule_launch(
+        err = launch(
             arr.data_ptr(), out.data_ptr(), rows, cols, cmp_cols.data_ptr(),
             keys.data_ptr(), key_valid.data_ptr(), wr_cols.data_ptr(),
             wr_vals.data_ptr(), S, K, C, W, sched_bytes, threads, stream)
-    _check_status(err, "tap_apply_schedule")
+    cuda_lib.check_status(err, "tap_apply_schedule")
     launch_counts["tap_apply_schedule"] += 1
     return out

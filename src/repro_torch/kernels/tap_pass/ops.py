@@ -20,7 +20,8 @@ def _pad_rows(arr: torch.Tensor, block_rows: int
     rows = arr.shape[0]
     padded = (rows + block_rows - 1) // block_rows * block_rows
     if padded != rows:
-        # don't-care rows never match any key and pass through unchanged
+        # -1 (don't-care) rows match every key: the program kernel masks
+        # them by n_valid_rows, the schedule kernel's callers slice them off
         pad = torch.full((padded - rows, arr.shape[1]), -1, dtype=arr.dtype,
                          device=arr.device)
         arr = torch.cat([arr, pad], dim=0)

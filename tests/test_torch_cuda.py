@@ -53,3 +53,96 @@ def test_schedule_kernel_matches_plain(dev, blk):
     arr = _digits(4096, 7, 3, 1).to(dev)
     assert torch.equal(kernel.tap_apply_schedule(arr, sched),
                        ref.apply_schedule(arr, sched))
+
+
+# ---------------------------------------------------------------------------
+# The packed-ternary matmul kernel
+# ---------------------------------------------------------------------------
+
+ODD_SHAPES = [(1, 17, 1), (3, 17, 130), (1, 1000, 130), (3, 1000, 1),
+              (8, 16, 8), (100, 300, 96), (17, 64, 129), (40, 513, 257)]
+
+
+def _packed_case(m, k, n, seed, dtype):
+    from repro_torch.kernels.ternary_matmul import quantize_and_pack
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.normal(0, 0.05, (k, n)).astype(np.float32))
+    packed, scale = quantize_and_pack(w)
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
+    return x.to(dtype), packed, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", ODD_SHAPES)
+def test_ternary_matmul_kernel_matches_plain(dev, m, k, n, dtype):
+    """fp32 sums in another order than the plain version's matmul: within
+    1e-4 (fp32) / 5e-2 (bf16, one rounding of the output), as the
+    reference's own kernel test holds it."""
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.kernels.ternary_matmul.ref import ternary_matmul_ref
+    x, packed, scale = _packed_case(m, k, n, m * 1000 + k + n, dtype)
+    x, packed, scale = x.to(dev), packed.to(dev), scale.to(dev)
+    before = tk.launch_counts["ternary_matmul"]
+    y = tk.ternary_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["ternary_matmul"] == before + 1
+    want = ternary_matmul_ref(x, packed, scale)
+    assert y.dtype == dtype and y.shape == (m, n)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_ternary_matmul_kernel_exact_on_integers(dev):
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.kernels.ternary_matmul.ref import pack_ternary
+    rng = np.random.default_rng(7)
+    w_t = torch.from_numpy(rng.integers(-1, 2, (1024, 130)).astype(np.int8))
+    x = torch.from_numpy(rng.integers(-7, 8, (5, 1024)).astype(np.float32))
+    y = tk.ternary_matmul(x.to(dev), pack_ternary(w_t).to(dev),
+                          torch.ones(130, device=dev))
+    assert torch.equal(y.cpu(), x @ w_t.float())
+
+
+def test_ternary_matmul_kernel_refuses_other_dtypes(dev):
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    x, packed, scale = _packed_case(4, 32, 8, 0, torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tk.ternary_matmul(x.to(dev), packed.to(dev), scale.to(dev))
+
+
+def test_failed_build_raises_and_does_not_fall_back(dev, tmp_path,
+                                                    monkeypatch):
+    """A kernel whose source does not compile raises on CUDA tensors; the
+    plain version is never taken and no launch is counted."""
+    import dataclasses
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    (tmp_path / "ternary_matmul.cu").write_text("this is not CUDA C++\n")
+    broken = dataclasses.replace(cuda_lib.LIBRARIES["ternary_matmul"],
+                                 csrc=tmp_path)
+    monkeypatch.setitem(cuda_lib.LIBRARIES, "ternary_matmul", broken)
+    monkeypatch.setattr(cuda_lib, "_entries", {})
+    x, packed, scale = _packed_case(4, 32, 8, 0, torch.float32)
+    before = tk.launch_counts["ternary_matmul"]
+    with pytest.raises(RuntimeError, match="build failed"):
+        tk.ternary_matmul(x.to(dev), packed.to(dev), scale.to(dev))
+    assert tk.launch_counts["ternary_matmul"] == before
+
+
+def test_ap_matmul_on_the_card_matches_ref(dev):
+    """The K-tiled AP matmul through the program kernel: bit-identical to
+    impl="ref", cycles equal to the schedule's static counts."""
+    from repro_torch.core.ap import APStats
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    from repro_torch.kernels.ternary_matmul.ap import ap_matmul_cycle_counts
+    x, packed, scale = _packed_case(3, 40, 24, 5, torch.float32)
+    x = torch.round(x * 3).to(dev)
+    packed, scale = packed.to(dev), scale.to(dev)
+    st = APStats(radix=3)
+    y = ternary_matmul(x, packed, scale, impl="ap", k_tile=7, stats=st)
+    assert torch.equal(y, ternary_matmul(x, packed, scale, impl="ref"))
+    width = apc.mac_acc_width(3, 48, int(x.abs().max()))
+    cyc = ap_matmul_cycle_counts(3, 48, width, k_tile=7)
+    assert (st.n_write_cycles, st.n_compare_cycles) == (
+        cyc["write_cycles"], cyc["compare_cycles"])

@@ -1,0 +1,228 @@
+"""The port's packed-ternary matmul against the reference's, on the same
+seeded inputs: pack/unpack words equal, quantization equal away from
+rounding boundaries, ``ternary_matmul_op`` within the reference tests'
+tolerances (1e-4 fp32, 5e-2 bf16) and exact on integers, the same padding
+semantics, the same dispatcher names and errors.  The port runs on the CPU
+(the kernel's plain version), the reference's Pallas kernel in interpret
+mode."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ternary_matmul import ops as ref_ops
+from repro.kernels.ternary_matmul import ref as ref_ref
+
+from repro_torch.convert import packed_mlp_from_arrays
+from repro_torch.kernels.ternary_matmul import kernel, ops, ref
+from repro_torch.kernels.ternary_matmul.ops import (quantize_and_pack,
+                                                    ternary_matmul,
+                                                    ternary_matmul_op)
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _ref_weights(k, n, seed):
+    """The reference's quantize_and_pack of seeded weights, carried into
+    the port by convert.packed_mlp_from_arrays."""
+    w = np.random.default_rng(seed).normal(0, 0.05, (k, n)).astype(
+        np.float32)
+    packed, scale = ref_ops.quantize_and_pack(jnp.asarray(w))
+    ours = packed_mlp_from_arrays({"w_packed": np.asarray(packed),
+                                   "w_scale": np.asarray(scale)},
+                                  device="cpu")
+    return w, (packed, scale), (ours["w_packed"], ours["w_scale"])
+
+
+def _x(m, k, seed, dtype):
+    x = np.random.default_rng(seed).normal(0, 1, (m, k)).astype(np.float32)
+    return jnp.asarray(x, JNP[dtype]), torch.from_numpy(x).to(dtype)
+
+
+def _trit_patterns():
+    """48 x 20 trits: every digit value at every position of a word, digit
+    2 in position 15 (bit 31) included, plus seeded random columns."""
+    cols = [np.full(48, v) for v in (-1, 0, 1)]
+    cols += [np.tile([-1, 0, 1], 16), np.tile([1, 0, -1], 16),
+             np.where(np.arange(48) % 16 == 15, 1, -1)]
+    rng = np.random.default_rng(11)
+    cols += [rng.integers(-1, 2, 48) for _ in range(14)]
+    return np.stack(cols, axis=1).astype(np.int8)
+
+
+def test_pack_unpack_word_for_word():
+    w = _trit_patterns()
+    theirs = np.array(ref_ref.pack_ternary(jnp.asarray(w)))
+    ours = ref.pack_ternary(torch.from_numpy(w))
+    assert ours.dtype == torch.int32
+    assert np.array_equal(ours.numpy(), theirs)
+    assert (theirs < 0).any()              # bit 31 set: the int32 wrap
+    assert np.array_equal(ref.unpack_ternary(ours, torch.int8).numpy(), w)
+    assert np.array_equal(
+        ref.unpack_ternary(torch.from_numpy(theirs)).numpy(),
+        np.asarray(ref_ref.unpack_ternary(jnp.asarray(theirs))))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ref.pack_ternary(torch.zeros((17, 2), dtype=torch.int8))
+
+
+def test_quantize_ternary_matches_away_from_rounding_boundaries():
+    """Scales equal to 1e-6 (the mean sums in another order); trits equal
+    wherever |w / scale| lies more than 1e-5 from a rounding boundary
+    (+-0.5).  On these inputs 1 of the 16384 entries is that close."""
+    w = np.random.default_rng(5).normal(0, 0.05, (128, 128)).astype(
+        np.float32)
+    t_ter, t_scale = (np.asarray(a) for a in
+                      ref_ref.quantize_ternary(jnp.asarray(w)))
+    o_ter, o_scale = ref.quantize_ternary(torch.from_numpy(w))
+    np.testing.assert_allclose(o_scale.numpy(), t_scale, rtol=1e-6)
+    near = np.abs(np.abs(w / t_scale[None, :]) - 0.5) <= 1e-5
+    assert int(near.sum()) == 1
+    assert np.array_equal(o_ter.numpy()[~near], t_ter[~near])
+    assert o_ter.dtype == torch.int8 and o_scale.dtype == torch.float32
+
+
+def test_quantize_and_pack_matches_reference():
+    w = np.random.default_rng(6).normal(0, 0.05, (300, 96)).astype(
+        np.float32)
+    t_packed, t_scale = ref_ops.quantize_and_pack(jnp.asarray(w))
+    o_packed, o_scale = quantize_and_pack(torch.from_numpy(w))
+    assert np.array_equal(o_packed.numpy(), np.asarray(t_packed))
+    np.testing.assert_allclose(o_scale.numpy(), np.asarray(t_scale),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 16, 8), (32, 256, 128),
+                                   (100, 300, 96), (256, 512, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ternary_matmul_op_matches_reference(m, k, n, dtype):
+    _, (t_packed, t_scale), (o_packed, o_scale) = _ref_weights(
+        k, n, m * 1000 + k + n)
+    tx, ox = _x(m, k, 1, dtype)
+    want = np.asarray(ref_ops.ternary_matmul_op(tx, t_packed, t_scale),
+                      np.float32)
+    y = ternary_matmul_op(ox, o_packed, o_scale)
+    assert y.dtype == dtype and tuple(y.shape) == (m, n)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(y.float().numpy(), want, atol=tol, rtol=tol)
+    np.testing.assert_allclose(
+        y.float().numpy(),
+        np.asarray(ref_ref.ternary_matmul_ref(tx, t_packed, t_scale),
+                   np.float32), atol=tol, rtol=tol)
+
+
+def test_ternary_matmul_exact_integers():
+    """With integer activations the ternary product is exact."""
+    rng = np.random.default_rng(7)
+    w_t = rng.integers(-1, 2, (64, 32)).astype(np.int8)
+    x = rng.integers(-3, 4, (16, 64)).astype(np.float32)
+    y = ternary_matmul_op(torch.from_numpy(x),
+                          ref.pack_ternary(torch.from_numpy(w_t)),
+                          torch.ones(32))
+    assert np.array_equal(y.numpy(), x @ w_t.astype(np.float32))
+
+
+def test_x_narrower_than_packed_k_is_zero_padded():
+    """K = 19 against K' = 32 (pack-time zero rows)."""
+    _, (t_packed, t_scale), (o_packed, o_scale) = _ref_weights(19, 24, 3)
+    tx, ox = _x(5, 19, 4, torch.float32)
+    want = np.asarray(ref_ops.ternary_matmul_op(tx, t_packed, t_scale))
+    np.testing.assert_allclose(
+        ternary_matmul_op(ox, o_packed, o_scale).numpy(), want, atol=1e-4,
+        rtol=1e-4)
+
+
+def test_x_wider_than_packed_k_meets_zero_weights():
+    """The reference wrapper's quirk, reproduced: x with K = 40 against
+    K' = 32 (which ternary_matmul_ref refuses) multiplies its extra columns
+    by zero padding words, so they count only through NaN."""
+    _, (t_packed, t_scale), (o_packed, o_scale) = _ref_weights(32, 24, 8)
+    tx, ox = _x(6, 40, 9, torch.float32)
+    tx = tx.at[2, 37].set(jnp.nan)
+    ox[2, 37] = float("nan")
+    want = np.asarray(ref_ops.ternary_matmul_op(tx, t_packed, t_scale))
+    y = ternary_matmul_op(ox, o_packed, o_scale).numpy()
+    np.testing.assert_allclose(y, want, atol=1e-4, rtol=1e-4)
+    assert np.isnan(y[2]).all() and not np.isnan(np.delete(y, 2, 0)).any()
+    np.testing.assert_allclose(
+        np.delete(y, 2, 0),
+        ternary_matmul_op(ox[:, :32], o_packed, o_scale).numpy()[[0, 1, 3,
+                                                                   4, 5]],
+        atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="exceeds packed"):
+        kernel.ternary_matmul(ox, o_packed, o_scale)
+
+
+def test_dispatcher_names_and_errors():
+    _, (t_packed, t_scale), (o_packed, o_scale) = _ref_weights(48, 8, 12)
+    tx, ox = _x(3, 48, 13, torch.float32)
+    y = ternary_matmul(ox, o_packed, o_scale)                  # "pallas"
+    assert torch.equal(ternary_matmul(ox, o_packed, o_scale, impl="packed"),
+                       y)
+    assert torch.equal(ternary_matmul(ox, o_packed, o_scale, impl="ref"),
+                       ref.ternary_matmul_ref(ox, o_packed, o_scale))
+    for impl_ in ("pallas", "ref"):
+        np.testing.assert_allclose(
+            ternary_matmul(ox, o_packed, o_scale, impl=impl_).numpy(),
+            np.asarray(ref_ops.ternary_matmul(tx, t_packed, t_scale,
+                                              impl=impl_)),
+            atol=1e-4, rtol=1e-4)
+    for mod, x, p, s in ((ops, ox, o_packed, o_scale),
+                         (ref_ops, tx, t_packed, t_scale)):
+        with pytest.raises(TypeError, match="no extra kwargs"):
+            mod.ternary_matmul(x, p, s, impl="ref", radix=3)
+        with pytest.raises(ValueError, match="unknown impl"):
+            mod.ternary_matmul(x, p, s, impl="dense")
+    with pytest.raises(TypeError):
+        ternary_matmul(ox, o_packed, o_scale, impl="pallas", interpret=True)
+
+
+def test_cpu_path_counts_no_launch_and_launcher_refuses_cpu():
+    _, _, (o_packed, o_scale) = _ref_weights(32, 8, 14)
+    before = dict(kernel.launch_counts)
+    ternary_matmul(torch.ones((2, 32)), o_packed, o_scale)
+    assert kernel.launch_counts == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel._launch(torch.ones((2, 32)), o_packed, o_scale)
+    assert kernel.m_tile(1) == 1 and kernel.m_tile(3) == 4
+    assert kernel.m_tile(16) == 16 and kernel.m_tile(2048) == 16
+
+
+def test_new_modules_load_no_jax_and_default_to_cuda():
+    """The slice's modules import neither JAX nor the reference, and their
+    entry points that take no tensor device raise without a card."""
+    code = (
+        "import sys, torch, numpy as np\n"
+        "import repro_torch.kernels.ternary_matmul, repro_torch.models.quant\n"
+        "from repro_torch import apc\n"
+        "from repro_torch.core import ap, build_lut_nonblocked\n"
+        "from repro_torch.core import truth_tables as tt\n"
+        "from repro_torch.convert import packed_mlp_from_arrays\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'repro'"
+        " or m.split('.')[0].startswith('jax')]\n"
+        "assert not bad, bad\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "x = np.ones((4, 3), np.int64)\n"
+        "lut = build_lut_nonblocked(tt.full_adder(3))\n"
+        "calls = [lambda: apc.run_mac_tiled(x, x, "
+        "apc.compile_mac_tiled(3, 3, 4, 2)),\n"
+        "  lambda: ap.mac_tiled(x, x, 3, 4, k_tile=2),\n"
+        "  lambda: ap.mac(np.zeros((4, 20), np.int8), lut, lut, 3, 4),\n"
+        "  lambda: packed_mlp_from_arrays({'w1_scale': np.ones(2)})]\n"
+        "for call in calls:\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e)\n"
+        "    else:\n"
+        "        raise SystemExit('ran without a card')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
