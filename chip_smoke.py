@@ -9,9 +9,12 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
    inputs.  The TAP kernels: digits and every per-block counter row equal
    (tolerance: none, integer results must match exactly, max_abs_err 0),
    over the program matrix below and the programs of a small K-tiled MAC.
-   The packed-ternary matmul: fp32 within 1e-4 and bf16 within 5e-2
-   (allclose, atol = rtol), on the reference's test shapes and odd ones,
-   and exact on integer activations.
+   The packed-ternary matmul, both kernels (bf16 with M >= 16 on the
+   tensor cores, the rest on the CUDA cores; each call must launch the one
+   ``kernel_for`` names and not the other): fp32 within 1e-4 and bf16
+   within 5e-2 (allclose, atol = rtol), on the reference's test shapes and
+   odd ones, exact on integer activations, and bit-identical to the plain
+   version on bf16 integer activations.
 3. The main paths at full size, each with every kernel's launch count set
    to 0 just before it and read just after; each fails if a kernel of the
    path was not launched.
@@ -33,7 +36,10 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
 4. Times: CUDA-event medians of each kernel, its plain version and, for the
    matmul, the library product on a dense weight, beside each kernel's
    bound, at the main paths' shapes (and qwen2-72b's MLP width for the
-   matmul).
+   matmul).  Where bf16 runs on the tensor cores, the CUDA-core kernel is
+   timed beside it on the same inputs, and the tensor-core kernel at each
+   of its M tiles on the MLP's products.  The matmul rows also give the
+   device's time alone: a CUDA graph of 20 calls, replayed.
 
 Prints the kernels line (one JSON object) and the card's ``nvidia-smi``
 name and power limit before the last line, which is
@@ -78,10 +84,13 @@ QWEN3_06B = (1024, 3072)
 QWEN2_72B = (8192, 29568)
 # packed-ternary matmul: the reference's kernel test shapes
 # (tests/test_kernels.py), odd ones (M = 1, 3; K = 17, 1000; N = 1, 130)
-# and the main path's two products at 2048 tokens (w1/w3 and w2)
+# and the main path's two products at 2048 tokens (w1/w3 and w2); the
+# tensor-core kernel's ragged edges (M = 16, 17, 129; K = 17, 513, 1000;
+# N = 1, 129, 130, 257)
 MATMUL_CHECK_SHAPES = ((8, 16, 8), (32, 256, 128), (100, 300, 96),
                        (256, 512, 256), (1, 17, 1), (3, 17, 130),
-                       (1, 1000, 130), (3, 1000, 1),
+                       (1, 1000, 130), (3, 1000, 1), (16, 17, 1),
+                       (17, 64, 129), (128, 1000, 130), (129, 513, 257),
                        (2048, QWEN3_06B[0], QWEN3_06B[1]),
                        (2048, QWEN3_06B[1], QWEN3_06B[0]))
 MATMUL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -99,7 +108,9 @@ AP_TOKENS, AP_K_TILE, AP_MAX_ABS = 4, 64, 7
 # ternary-matmul timings: (model, K, N, M), K x N the model's w1
 MATMUL_TIMES = tuple(("qwen3-0.6b", *QWEN3_06B, m) for m in (1, 16, 2048)) + \
     tuple(("qwen2-72b", *QWEN2_72B, m) for m in (1, 16))
-MATMUL_LINE = ("qwen3-0.6b", 16, "bfloat16")   # the kernels line's row
+# the kernels line's rows: (model, M, dtype)
+MATMUL_LINE = {"ternary_matmul": ("qwen3-0.6b", 16, "float32"),
+               "ternary_matmul_tc": ("qwen3-0.6b", 2048, "bfloat16")}
 
 KERNELS = {
     "tap_run_program": {
@@ -111,6 +122,10 @@ KERNELS = {
     "ternary_matmul": {
         "source": "src/repro_torch/kernels/ternary_matmul/csrc/"
                   "ternary_matmul.cu",
+        "replaces": "src/repro/kernels/ternary_matmul/kernel.py:75"},
+    "ternary_matmul_tc": {
+        "source": "src/repro_torch/kernels/ternary_matmul/csrc/"
+                  "ternary_matmul_tc.cu",
         "replaces": "src/repro/kernels/ternary_matmul/kernel.py:75"},
 }
 
@@ -258,31 +273,47 @@ def packed_weights(k: int, n: int, rng, dev):
     return quantize_and_pack(w.to(dev))
 
 
-def phase_matmul_vs_plain(dev, log) -> dict[str, float]:
-    """The ternary-matmul kernel against ``ternary_matmul_ref`` on the
-    card: fp32 / bf16 within MATMUL_TOL, integer activations exact."""
+def routed_matmul(tk, x, packed, scale):
+    """``tk.ternary_matmul`` on the card; checks that it launched the
+    kernel ``kernel_for`` names, once, and no other.  Returns (y, name)."""
+    before = dict(tk.launch_counts)
+    y = tk.ternary_matmul(x, packed, scale)
+    name = tk.kernel_for(x.dtype, x.shape[0])
+    moved = {k: n - before[k] for k, n in tk.launch_counts.items()}
+    check(moved == {k: int(k == name) for k in moved},
+          f"ternary_matmul M={x.shape[0]} {x.dtype}: launches {moved}, "
+          f"expected one of {name}")
+    return y, name
+
+
+def phase_matmul_vs_plain(dev, log) -> dict[str, dict[str, float]]:
+    """Both ternary-matmul kernels against ``ternary_matmul_ref`` on the
+    card: fp32 / bf16 within MATMUL_TOL, integer activations exact (fp32)
+    or bit-identical to the plain version (bf16).  Max errors per kernel."""
     import torch
     from repro_torch.kernels.ternary_matmul import kernel as tk
     from repro_torch.kernels.ternary_matmul.ref import (pack_ternary,
                                                         ternary_matmul_ref)
     rng = np.random.default_rng(SEED + 3)
-    err = {"float32": 0.0, "bfloat16": 0.0, "integer": 0.0}
+    err = {"ternary_matmul": {"float32": 0.0, "bfloat16": 0.0,
+                              "integer": 0.0},
+           "ternary_matmul_tc": {"bfloat16": 0.0, "integer": 0.0}}
     for m, k, n in MATMUL_CHECK_SHAPES:
         packed, scale = packed_weights(k, n, rng, dev)
         x32 = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             x = x32.to(dev, dtype)
-            y = tk.ternary_matmul(x, packed, scale)
+            y, kname = routed_matmul(tk, x, packed, scale)
             want = ternary_matmul_ref(x, packed, scale)
             check(y.dtype == dtype and tuple(y.shape) == (m, n),
-                  f"ternary_matmul {m}x{k}x{n} {name}: got {y.dtype} "
+                  f"{kname} {m}x{k}x{n} {name}: got {y.dtype} "
                   f"{tuple(y.shape)}")
             e, ok = allclose_err(y, want, MATMUL_TOL[name])
-            err[name] = max(err[name], e)
-            log(f"  ternary_matmul M={m} K={k} N={n} {name} max_abs_err="
+            err[kname][name] = max(err[kname][name], e)
+            log(f"  {kname} M={m} K={k} N={n} {name} max_abs_err="
                 f"{e:.3e} (tolerance {MATMUL_TOL[name]})")
-            check(ok, f"ternary_matmul {m}x{k}x{n} {name} disagrees")
+            check(ok, f"{kname} {m}x{k}x{n} {name} disagrees")
     # integer activations: the sums are exact in fp32, so is the product
     for m, k, n in ((16, 64, 32), (AP_TOKENS, QWEN3_06B[0], QWEN3_06B[1])):
         w_t = torch.from_numpy(
@@ -290,12 +321,33 @@ def phase_matmul_vs_plain(dev, log) -> dict[str, float]:
         x = torch.from_numpy(rng.integers(
             -AP_MAX_ABS, AP_MAX_ABS + 1, (m, k)).astype(np.float32)).to(dev)
         packed, ones = pack_ternary(w_t), torch.ones(n, device=dev)
-        y = tk.ternary_matmul(x, packed, ones)
+        y, kname = routed_matmul(tk, x, packed, ones)
         e = float((y.double() - x.double() @ w_t.double()).abs().max())
-        err["integer"] = max(err["integer"], e)
-        log(f"  ternary_matmul integers M={m} K={k} N={n} max_abs_err={e}")
+        err[kname]["integer"] = max(err[kname]["integer"], e)
+        log(f"  {kname} integers M={m} K={k} N={n} max_abs_err={e}")
         check(e == 0 and torch.equal(y, ternary_matmul_ref(x, packed, ones)),
-              f"ternary_matmul integers {m}x{k}x{n} not exact")
+              f"{kname} integers {m}x{k}x{n} not exact")
+    # bf16 integer activations on the tensor cores: every fp32 sum is exact
+    # and both sides round acc * scale[n] once, so y is bit for bit the
+    # plain version's
+    d, f = QWEN3_06B
+    for m in (16, 2048):
+        w_t = torch.from_numpy(
+            rng.integers(-1, 2, (d, f)).astype(np.int8)).to(dev)
+        x = torch.from_numpy(rng.integers(
+            -AP_MAX_ABS, AP_MAX_ABS + 1, (m, d)).astype(np.float32)).to(
+                dev, torch.bfloat16)
+        packed = pack_ternary(w_t)
+        scale = torch.from_numpy(
+            rng.uniform(0.01, 0.05, f).astype(np.float32)).to(dev)
+        y, kname = routed_matmul(tk, x, packed, scale)
+        want = ternary_matmul_ref(x, packed, scale)
+        e = float((y.float() - want.float()).abs().max())
+        err[kname]["integer"] = max(err[kname]["integer"], e)
+        log(f"  {kname} bf16 integers M={m} K={d} N={f} max_abs_err={e}, "
+            f"bit-identical {torch.equal(y, want)}")
+        check(kname == "ternary_matmul_tc" and torch.equal(y, want),
+              f"{kname} bf16 integers {m}x{d}x{f} not bit-identical")
     torch.cuda.synchronize()
     return err
 
@@ -685,6 +737,20 @@ def event_ms(fn, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int = 5, inner: int = 20) -> float:
+    """Median over ``reps`` of the CUDA-event time of one replay of a CUDA
+    graph that holds ``inner`` calls, per call: the device's time, without
+    the host's work per call that ``event_ms`` can include."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return event_ms(graph.replay, reps, 1) / inner
+
+
 def program_bound(sched, rows: int, cols: int, sets: int) -> dict:
     """Least time of one program launch with counters on: each digit read
     and written once (plus the schedule and counters), against every cell
@@ -788,9 +854,11 @@ def phase_times(dev, card: str, log) -> list[dict]:
 
 
 def phase_matmul_times(dev, card: str, log) -> list[dict]:
-    """Ternary-matmul kernel, plain version and library product (a dense
+    """Ternary-matmul kernels, plain version and library product (a dense
     weight in x's dtype, no TF32) at the MLP shapes, and the program
-    kernel on the AP matmul's tile and reduction programs."""
+    kernel on the AP matmul's tile and reduction programs.  Where bf16 runs
+    on the tensor cores the CUDA-core kernel is timed too, through its own
+    launcher, on the same inputs."""
     import torch
     from repro_torch import apc
     from repro_torch.apc.exec import BLOCK_ROWS, device_schedule
@@ -830,28 +898,59 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
                 dense[dtype] = (w, scale.to(dtype))
             w, sc = dense[dtype]
             x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-            ms = event_ms(lambda: tk.ternary_matmul(x, packed, scale),
-                          reps=5, inner=20)
+            routed = tk.kernel_for(dtype, m)
+            runs = {routed: lambda: tk.ternary_matmul(x, packed, scale)}
+            if routed == "ternary_matmul_tc":
+                runs["ternary_matmul"] = lambda: tk._launch_cuda_cores(
+                    x, packed, scale)
+            kernel_ms = {kname: (event_ms(fn, reps=5, inner=20),
+                                 graph_ms(fn)) for kname, fn in runs.items()}
             plain_ms = event_ms(
                 lambda: ternary_matmul_ref(x, packed, scale), reps=3,
                 inner=1)
             library_ms = event_ms(lambda: torch.matmul(x, w) * sc, reps=5,
                                   inner=20)
+            library_device_ms = graph_ms(lambda: torch.matmul(x, w) * sc)
             size = x.element_size()
             b = bound(m * k * size + k * n // 4 + m * n * size, 2 * m * k * n,
                       PEAK_FLOP_PER_S[name])
-            row = {"kernel": "ternary_matmul", "model": model, "m": m,
-                   "k": k, "n": n, "dtype": name, "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": library_ms, **b,
-                   "card": card}
-            rows_out.append(row)
-            log(f"  time ternary_matmul {model} w1 M={m} K={k} N={n} {name}"
-                f" kernel {ms:.6f} ms, plain {plain_ms:.3f} ms, library "
-                f"{library_ms:.6f} ms, bound {b['bound_ms']:.6f} ms "
-                f"({b['bound_by']}: bytes {b['bytes_ms']:.6f} ms, {name} "
-                f"ops {b['ops_ms']:.6f} ms), card {card}")
+            for kname, (ms, device_ms) in kernel_ms.items():
+                row = {"kernel": kname, "routed": kname == routed,
+                       "model": model, "m": m, "k": k, "n": n, "dtype": name,
+                       "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms,
+                       "library_device_ms": library_device_ms, **b,
+                       "card": card}
+                rows_out.append(row)
+                log(f"  time {kname} {model} w1 M={m} K={k} N={n} {name}"
+                    f" kernel {ms:.6f} ms (graph {device_ms:.6f}), plain "
+                    f"{plain_ms:.3f} ms, library {library_ms:.6f} ms (graph "
+                    f"{library_device_ms:.6f}), bound {b['bound_ms']:.6f} ms "
+                    f"({b['bound_by']}: bytes {b['bytes_ms']:.6f} ms, {name} "
+                    f"ops {b['ops_ms']:.6f} ms), card {card}")
     weights.clear()
     torch.cuda.empty_cache()
+
+    # the tensor-core kernel at each M tile on the MLP's bf16 products
+    d, f = QWEN3_06B
+    for k, n in ((d, f), (f, d)):
+        packed = pack_ternary(torch.randint(-1, 2, (k, n), generator=gen,
+                                            device=dev, dtype=torch.int8))
+        scale = torch.rand(n, generator=gen, device=dev) * 0.04 + 0.01
+        for m in MLP_TOKENS[1:]:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            auto = tk.tc_m_tile(m, n, tk._sm_count(dev.index))
+            for bm in tk.TC_M_TILES:
+                ms = graph_ms(lambda: tk._launch_tensor_cores(
+                    x, packed, scale, bm=bm))
+                rows_out.append({"kernel": "ternary_matmul_tc", "tile": bm,
+                                 "chosen": bm == auto, "model": "qwen3-0.6b",
+                                 "m": m, "k": k, "n": n, "dtype": "bfloat16",
+                                 "device_ms": ms, "card": card})
+                log(f"  time ternary_matmul_tc M tile {bm}"
+                    f"{' (chosen)' if bm == auto else ''} M={m} K={k} N={n}"
+                    f" bf16 {ms:.6f} ms (graph), card {card}")
 
     # the program kernel at the AP matmul's shape
     rng = np.random.default_rng(SEED + 7)
@@ -970,7 +1069,8 @@ def main() -> int:
                                          phase_mac_programs_vs_plain(dev,
                                                                      log))
         report["matmul_vs_plain"] = phase_matmul_vs_plain(dev, log)
-        max_err["ternary_matmul"] = max(report["matmul_vs_plain"].values())
+        for name, errs in report["matmul_vs_plain"].items():
+            max_err[name] = max(errs.values())
 
         log("[main path: AP arithmetic]")
         report["main_path"] = main_path(
@@ -979,7 +1079,7 @@ def main() -> int:
         log("[main path: packed-ternary matmul, qwen3-0.6b MLP width]")
         report["matmul_path"] = main_path(
             "packed-ternary matmul", phase_matmul_path,
-            ("ternary_matmul", "tap_run_program"))
+            ("ternary_matmul", "ternary_matmul_tc", "tap_run_program"))
         launches = {k: report["main_path"]["launches"][k]
                     + report["matmul_path"]["launches"][k] for k in KERNELS}
 
@@ -991,11 +1091,11 @@ def main() -> int:
         return 1
 
     def line_row(name):
-        if name == "ternary_matmul":
-            model, m, dtype = MATMUL_LINE
+        if name in MATMUL_LINE:
+            model, m, dtype = MATMUL_LINE[name]
             return next(x for x in report["times"] if x["kernel"] == name
-                        and x["model"] == model and x["m"] == m
-                        and x["dtype"] == dtype)
+                        and x.get("routed") and x["model"] == model
+                        and x["m"] == m and x["dtype"] == dtype)
         return next(x for x in report["times"] if x["kernel"] == name
                     and x.get("rows") == FULL_ROWS)
 

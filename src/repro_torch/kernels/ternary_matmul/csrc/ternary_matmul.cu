@@ -30,9 +30,10 @@
 //
 // Arithmetic.  fp32 FMAs on the CUDA cores, never the TF32 tensor cores:
 // TF32 keeps 10 mantissa bits of x, about 5e-4 relative, outside the
-// 1e-4 tolerance.  For bf16 x, bf16 mma/wgmma with fp32 accumulation would
-// be exact here (bf16 x {-1, 0, 1} products are exact) and is left for a
-// later change.
+// 1e-4 tolerance.  bf16 x with M >= 16 does not come here: it runs on the
+// tensor cores in ternary_matmul_tc.cu (bf16 mma with fp32 accumulation,
+// exact for bf16 x {-1, 0, 1} products); the wrapper's `kernel_for` routes
+// fp32 x, and bf16 x with M < 16, to this kernel.
 //
 // Bound.  Bytes: x once, K' * N / 4 bytes of words, y once.  Operations:
 // 2 * M * K' * N at the fp32 FMA rate.  A decode step (M <= 16) at serving

@@ -82,10 +82,11 @@ def test_ternary_matmul_kernel_matches_plain(dev, m, k, n, dtype):
     from repro_torch.kernels.ternary_matmul.ref import ternary_matmul_ref
     x, packed, scale = _packed_case(m, k, n, m * 1000 + k + n, dtype)
     x, packed, scale = x.to(dev), packed.to(dev), scale.to(dev)
-    before = tk.launch_counts["ternary_matmul"]
+    before = dict(tk.launch_counts)
     y = tk.ternary_matmul(x, packed, scale)
     torch.cuda.synchronize()
-    assert tk.launch_counts["ternary_matmul"] == before + 1
+    ran = tk.kernel_for(dtype, m)
+    assert tk.launch_counts == {k: n + (k == ran) for k, n in before.items()}
     want = ternary_matmul_ref(x, packed, scale)
     assert y.dtype == dtype and y.shape == (m, n)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
@@ -128,6 +129,100 @@ def test_failed_build_raises_and_does_not_fall_back(dev, tmp_path,
     with pytest.raises(RuntimeError, match="build failed"):
         tk.ternary_matmul(x.to(dev), packed.to(dev), scale.to(dev))
     assert tk.launch_counts["ternary_matmul"] == before
+
+
+# ---------------------------------------------------------------------------
+# The packed-ternary matmul on the tensor cores (bf16, M >= 16)
+# ---------------------------------------------------------------------------
+
+TC_SHAPES = [(16, 17, 1), (17, 64, 129), (100, 300, 96), (128, 1000, 130),
+             (129, 513, 257), (2048, 1024, 3072)]
+
+
+def _tc_call(tk, x, packed, scale):
+    """One call that must launch the tensor-core kernel and nothing else."""
+    before = dict(tk.launch_counts)
+    y = tk.ternary_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert tk.launch_counts == {
+        k: n + (k == "ternary_matmul_tc") for k, n in before.items()}
+    return y
+
+
+@pytest.mark.parametrize("m,k,n", TC_SHAPES)
+def test_tensor_core_kernel_matches_plain(dev, m, k, n):
+    """bf16 x on the tensor cores within 5e-2 of the plain version (the
+    reference's bf16 tolerance), one launch of the tensor-core kernel and
+    none of the CUDA-core kernel per call."""
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.kernels.ternary_matmul.ref import ternary_matmul_ref
+    x, packed, scale = _packed_case(m, k, n, m * 1000 + k + n,
+                                    torch.bfloat16)
+    x, packed, scale = x.to(dev), packed.to(dev), scale.to(dev)
+    y = _tc_call(tk, x, packed, scale)
+    want = ternary_matmul_ref(x, packed, scale)
+    assert y.dtype == torch.bfloat16 and y.shape == (m, n)
+    torch.testing.assert_close(y.float(), want.float(), atol=5e-2,
+                               rtol=5e-2)
+
+
+@pytest.mark.parametrize("bm", [16, 64, 128])
+@pytest.mark.parametrize("m,k,n", [(16, 1024, 3072), (2048, 1024, 3072),
+                                   (129, 513, 257)])
+def test_tensor_core_integers_bit_identical(dev, m, k, n, bm):
+    """Integer activations |x| <= 7: every fp32 sum is exact and both sides
+    round acc * scale once, so y equals the plain version's bit for bit, at
+    every M tile."""
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.kernels.ternary_matmul.ref import (pack_ternary,
+                                                        ternary_matmul_ref)
+    rng = np.random.default_rng(m + k + n)
+    kp = -(-k // 16) * 16
+    w_t = torch.from_numpy(rng.integers(-1, 2, (kp, n)).astype(np.int8))
+    x = torch.from_numpy(rng.integers(-7, 8, (m, k)).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.01, 0.05, n).astype(np.float32))
+    x = x.to(dev, torch.bfloat16)
+    packed, scale = pack_ternary(w_t).to(dev), scale.to(dev)
+    y = tk._launch_tensor_cores(x, packed, scale, bm=bm)
+    assert torch.equal(y, ternary_matmul_ref(x, packed, scale))
+
+
+def test_tensor_core_x_narrower_than_packed_k(dev):
+    """x with K = 40 against K' = 64 words (the last 24 trits nonzero): the
+    missing columns count as zero, as in the plain version."""
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.kernels.ternary_matmul.ref import (pack_ternary,
+                                                        ternary_matmul_ref)
+    rng = np.random.default_rng(3)
+    w_t = torch.from_numpy(rng.integers(-1, 2, (64, 96)).astype(np.int8))
+    x = torch.from_numpy(rng.integers(-7, 8, (48, 40)).astype(np.float32))
+    x = x.to(dev, torch.bfloat16)
+    packed, ones = pack_ternary(w_t).to(dev), torch.ones(96, device=dev)
+    y = _tc_call(tk, x, packed, ones)
+    assert torch.equal(y, ternary_matmul_ref(x, packed, ones))
+    want = x.double() @ w_t[:40].to(dev, torch.double)
+    assert torch.equal(y.double(), want.to(torch.bfloat16).double())
+
+
+def test_tensor_core_failed_build_raises_and_does_not_fall_back(
+        dev, tmp_path, monkeypatch):
+    """A tensor-core kernel whose source does not compile raises on a bf16
+    call with M >= 16; neither the CUDA-core kernel nor the plain version
+    is taken, and no launch is counted."""
+    import dataclasses
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    (tmp_path / "ternary_matmul_tc.cu").write_text("this is not CUDA C++\n")
+    broken = dataclasses.replace(cuda_lib.LIBRARIES["ternary_matmul_tc"],
+                                 csrc=tmp_path)
+    monkeypatch.setitem(cuda_lib.LIBRARIES, "ternary_matmul_tc", broken)
+    monkeypatch.setattr(cuda_lib, "_entries", {})
+    x, packed, scale = _packed_case(32, 64, 16, 0, torch.bfloat16)
+    before = dict(tk.launch_counts)
+    with pytest.raises(RuntimeError, match="build failed"):
+        tk.ternary_matmul(x.to(dev), packed.to(dev), scale.to(dev))
+    assert tk.launch_counts == before
 
 
 def test_ap_matmul_on_the_card_matches_ref(dev):

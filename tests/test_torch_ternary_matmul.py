@@ -226,3 +226,60 @@ def test_new_modules_load_no_jax_and_default_to_cuda():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("dtype,m,want", [
+    (torch.bfloat16, 16, "ternary_matmul_tc"),
+    (torch.bfloat16, 17, "ternary_matmul_tc"),
+    (torch.bfloat16, 2048, "ternary_matmul_tc"),
+    (torch.bfloat16, 15, "ternary_matmul"),
+    (torch.bfloat16, 1, "ternary_matmul"),
+    (torch.float32, 1, "ternary_matmul"),
+    (torch.float32, 16, "ternary_matmul"),
+    (torch.float32, 2048, "ternary_matmul")])
+def test_routing_rule(dtype, m, want):
+    """bf16 x with M >= 16 goes to the tensor-core kernel; bf16 with
+    M < 16 and fp32 at any M to the CUDA-core kernel."""
+    assert kernel.kernel_for(dtype, m) == want
+
+
+@pytest.mark.parametrize("m,n,want", [
+    (2048, 3072, 64), (2048, 1024, 64), (512, 3072, 64), (16, 3072, 16),
+    (128, 3072, 16), (16, 29568, 16), (63, 29568, 16), (100, 29568, 64),
+    (1024, 1024, 16)])
+def test_tensor_core_m_tile_fills_the_card(m, n, want):
+    """The 64-row tile where its grid gives each of 132 SMs a CTA, else the
+    16-row tile."""
+    assert kernel.tc_m_tile(m, n, 132) == want
+
+
+def test_bf16_prefill_on_cpu_takes_plain_version():
+    """bf16 x at M = 2048 on the CPU: the plain version, no launch counted,
+    within 5e-2 of the reference's kernel (interpret mode)."""
+    _, (t_packed, t_scale), (o_packed, o_scale) = _ref_weights(64, 128, 21)
+    tx, ox = _x(2048, 64, 22, torch.bfloat16)
+    before = dict(kernel.launch_counts)
+    y = ternary_matmul(ox, o_packed, o_scale)
+    assert kernel.launch_counts == before
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (2048, 128)
+    want = np.asarray(ref_ops.ternary_matmul_op(tx, t_packed, t_scale),
+                      np.float32)
+    np.testing.assert_allclose(y.float().numpy(), want, atol=5e-2,
+                               rtol=5e-2)
+
+
+def test_tensor_core_library_is_registered():
+    """The tensor-core kernel is its own library on the one build path,
+    with its source under csrc/, computing with bf16 mma.sync."""
+    from repro_torch.kernels import cuda_lib
+    lib = cuda_lib.LIBRARIES["ternary_matmul_tc"]
+    src = lib.csrc / lib.source
+    assert src == (ROOT / "src" / "repro_torch" / "kernels" /
+                   "ternary_matmul" / "csrc" / "ternary_matmul_tc.cu")
+    assert src.is_file() and lib.entry == "ternary_matmul_tc_launch"
+    assert lib.path().parent == cuda_lib.BUILD_DIR
+    text = src.read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    assert f'extern "C" int {lib.entry}(' in text
+    assert set(kernel.launch_counts) == {"ternary_matmul",
+                                         "ternary_matmul_tc"}
