@@ -9,12 +9,13 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
    inputs.  The TAP kernels: digits and every per-block counter row equal
    (tolerance: none, integer results must match exactly, max_abs_err 0),
    over the program matrix below and the programs of a small K-tiled MAC.
-   The packed-ternary matmul, both kernels (bf16 with M >= 16 on the
-   tensor cores, the rest on the CUDA cores; each call must launch the one
-   ``kernel_for`` names and not the other): fp32 within 1e-4 and bf16
-   within 5e-2 (allclose, atol = rtol), on the reference's test shapes and
-   odd ones, exact on integer activations, and bit-identical to the plain
-   version on bf16 integer activations.
+   The packed-ternary matmul, both kernels (M >= 16 on the tensor cores,
+   fp32 as three bf16 passes, fewer rows on the CUDA cores; each call must
+   launch the one ``kernel_for`` names and not the other): fp32 within
+   1e-4 and bf16 within 5e-2 (allclose, atol = rtol), on the reference's
+   test shapes and odd ones, exact on integer activations, and
+   bit-identical to the plain version on integer activations in both
+   dtypes on the tensor cores, integers up to 2^19 among them.
 3. The main paths at full size, each with every kernel's launch count set
    to 0 just before it and read just after; each fails if a kernel of the
    path was not launched.
@@ -36,10 +37,11 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
 4. Times: CUDA-event medians of each kernel, its plain version and, for the
    matmul, the library product on a dense weight, beside each kernel's
    bound, at the main paths' shapes (and qwen2-72b's MLP width for the
-   matmul).  Where bf16 runs on the tensor cores, the CUDA-core kernel is
-   timed beside it on the same inputs, and the tensor-core kernel at each
-   of its M tiles on the MLP's products.  The matmul rows also give the
-   device's time alone: a CUDA graph of 20 calls, replayed.
+   matmul).  Both matmul kernels are timed on the same inputs at every
+   shape (M = 1, 4, 8, 16, 2048; the routed one and the other, through its
+   own launcher), and the tensor-core kernel at each of its M tiles on the
+   MLP's products in both dtypes.  The matmul rows also give the device's
+   time alone: a CUDA graph of 20 calls, replayed.
 
 Prints the kernels line (one JSON object) and the card's ``nvidia-smi``
 name and power limit before the last line, which is
@@ -71,12 +73,22 @@ PAPER_TABLE_XI = {"energy": 12.25, "setreset": 12.6, "area": 6.2}
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper, dense, at
 # 700 W): device memory 3.35 TB/s; INT32 issue 64 lanes per SM x 132 SMs x
 # 1.98 GHz boost clock (the clock behind the 67 TFLOP/s fp32 figure); the
-# matmul's operations at the card's peak for x's type: bf16 on the tensor
-# cores 989 TFLOP/s, fp32 outside them 67 TFLOP/s (TF32 would lose the
-# 1e-4 tolerance, so it is not the fp32 peak here)
+# matmul's operations on the tensor cores at the bf16 rate, 989 TFLOP/s:
+# bf16 x once, fp32 x as three exact bf16 passes (TF32 would lose the 1e-4
+# tolerance; the bound at the fp32-FMA rate, 67 TFLOP/s, is kept beside
+# it, though the three-pass kernel beats it)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
-PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_FP32_FMA_FLOP_PER_S = 67e12
+MATMUL_PASSES = {"float32": 3, "bfloat16": 1}
+# the program kernel's least time: a 32-bit operation handles at most 32
+# rows (one bit each) of a cell compare or write; and a step cannot finish
+# before one dependent shared-memory compare-and-write of the step before
+# it, about 30 SM cycles (a shared-memory load's latency on Hopper, plus
+# the compare and the store) at the boost clock
+ROWS_PER_OP = 32
+STEP_CHAIN_S = 30 / 1.98e9
 
 # qwen3-0.6b (src/repro/configs/qwen3_0_6b.py) and qwen2-72b
 # (src/repro/configs/qwen2_72b.py) MLP widths: (d_model, d_ff)
@@ -106,10 +118,11 @@ MLP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MLP_TOKENS = (1, 16, 128, 2048)
 AP_TOKENS, AP_K_TILE, AP_MAX_ABS = 4, 64, 7
 # ternary-matmul timings: (model, K, N, M), K x N the model's w1
-MATMUL_TIMES = tuple(("qwen3-0.6b", *QWEN3_06B, m) for m in (1, 16, 2048)) + \
+MATMUL_TIMES = tuple(("qwen3-0.6b", *QWEN3_06B, m)
+                    for m in (1, 4, 8, 16, 2048)) + \
     tuple(("qwen2-72b", *QWEN2_72B, m) for m in (1, 16))
 # the kernels line's rows: (model, M, dtype)
-MATMUL_LINE = {"ternary_matmul": ("qwen3-0.6b", 16, "float32"),
+MATMUL_LINE = {"ternary_matmul": ("qwen3-0.6b", 1, "float32"),
                "ternary_matmul_tc": ("qwen3-0.6b", 2048, "bfloat16")}
 
 KERNELS = {
@@ -297,7 +310,8 @@ def phase_matmul_vs_plain(dev, log) -> dict[str, dict[str, float]]:
     rng = np.random.default_rng(SEED + 3)
     err = {"ternary_matmul": {"float32": 0.0, "bfloat16": 0.0,
                               "integer": 0.0},
-           "ternary_matmul_tc": {"bfloat16": 0.0, "integer": 0.0}}
+           "ternary_matmul_tc": {"float32": 0.0, "bfloat16": 0.0,
+                                 "integer": 0.0}}
     for m, k, n in MATMUL_CHECK_SHAPES:
         packed, scale = packed_weights(k, n, rng, dev)
         x32 = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
@@ -327,27 +341,32 @@ def phase_matmul_vs_plain(dev, log) -> dict[str, dict[str, float]]:
         log(f"  {kname} integers M={m} K={k} N={n} max_abs_err={e}")
         check(e == 0 and torch.equal(y, ternary_matmul_ref(x, packed, ones)),
               f"{kname} integers {m}x{k}x{n} not exact")
-    # bf16 integer activations on the tensor cores: every fp32 sum is exact
-    # and both sides round acc * scale[n] once, so y is bit for bit the
-    # plain version's
+    # integer activations on the tensor cores, bf16 and fp32 (three bf16
+    # passes): every fp32 sum is exact and both sides round acc * scale[n]
+    # once, so y is bit for bit the plain version's; |x| < 2^19 at K = 16
+    # keeps the sums below 2^24 and fills all three fp32 parts
     d, f = QWEN3_06B
-    for m in (16, 2048):
+    for m, k, n, big in ((16, d, f, AP_MAX_ABS), (2048, d, f, AP_MAX_ABS),
+                         (16, 16, 257, (1 << 19) - 1)):
         w_t = torch.from_numpy(
-            rng.integers(-1, 2, (d, f)).astype(np.int8)).to(dev)
-        x = torch.from_numpy(rng.integers(
-            -AP_MAX_ABS, AP_MAX_ABS + 1, (m, d)).astype(np.float32)).to(
-                dev, torch.bfloat16)
+            rng.integers(-1, 2, (k, n)).astype(np.int8)).to(dev)
         packed = pack_ternary(w_t)
         scale = torch.from_numpy(
-            rng.uniform(0.01, 0.05, f).astype(np.float32)).to(dev)
-        y, kname = routed_matmul(tk, x, packed, scale)
-        want = ternary_matmul_ref(x, packed, scale)
-        e = float((y.float() - want.float()).abs().max())
-        err[kname]["integer"] = max(err[kname]["integer"], e)
-        log(f"  {kname} bf16 integers M={m} K={d} N={f} max_abs_err={e}, "
-            f"bit-identical {torch.equal(y, want)}")
-        check(kname == "ternary_matmul_tc" and torch.equal(y, want),
-              f"{kname} bf16 integers {m}x{d}x{f} not bit-identical")
+            rng.uniform(0.01, 0.05, n).astype(np.float32)).to(dev)
+        xi = rng.integers(-big, big + 1, (m, k)).astype(np.float32)
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.bfloat16 and big > AP_MAX_ABS:
+                continue                 # not integers once in bf16
+            name = str(dtype).split(".")[1]
+            x = torch.from_numpy(xi).to(dev, dtype)
+            y, kname = routed_matmul(tk, x, packed, scale)
+            want = ternary_matmul_ref(x, packed, scale)
+            e = float((y.float() - want.float()).abs().max())
+            err[kname]["integer"] = max(err[kname]["integer"], e)
+            log(f"  {kname} {name} integers |x| <= {big} M={m} K={k} N={n} "
+                f"max_abs_err={e}, bit-identical {torch.equal(y, want)}")
+            check(kname == "ternary_matmul_tc" and torch.equal(y, want),
+                  f"{kname} {name} integers {m}x{k}x{n} not bit-identical")
     torch.cuda.synchronize()
     return err
 
@@ -751,11 +770,18 @@ def graph_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return event_ms(graph.replay, reps, 1) / inner
 
 
-def program_bound(sched, rows: int, cols: int, sets: int) -> dict:
-    """Least time of one program launch with counters on: each digit read
-    and written once (plus the schedule and counters), against every cell
-    compare of every valid key (all feed the histogram) plus every cell the
-    data changed (``sets``), at the INT32 issue rate."""
+def program_bound(sched, rows: int, cols: int, sets: int, pack: int
+                  ) -> dict:
+    """Least time of one program launch with counters on, for any
+    implementation: each digit read and written once (plus the schedule
+    and counters); every cell compare of every valid key (all feed the
+    histogram) plus every cell the data changed (``sets``), at most
+    ROWS_PER_OP rows per INT32 operation; and the groups of the schedule
+    one after another, each at least one dependent shared-memory
+    compare-and-write (STEP_CHAIN_S; bound_by reads "operations" where this
+    serial term is the largest).  ``per_row_ops_bound_ms`` is kept beside
+    it: one operation per row per cell, which a kernel that handles several
+    rows per operation can beat."""
     cmp_cols, keys, key_valid, hist_flag, wr_cols, wr_vals = sched
     n_bytes = 2 * rows * cols + sum(int(t.numel() * t.element_size())
                                     for t in sched)
@@ -763,16 +789,23 @@ def program_bound(sched, rows: int, cols: int, sets: int) -> dict:
     per_row = int(((cmp_cols >= 0).sum(dim=1) *
                    key_valid.to(bool).sum(dim=1)).sum())
     ops = rows * per_row + sets
-    return bound(n_bytes, ops)
+    b = bound(n_bytes, -(-ops // ROWS_PER_OP),
+              serial_ms=cmp_cols.shape[0] // pack * STEP_CHAIN_S * 1e3)
+    b["per_row_ops_bound_ms"] = max(b["bytes_ms"],
+                                    ops / PEAK_INT32_OPS_PER_S * 1e3)
+    return b
 
 
 def bound(n_bytes: int, ops: int,
-          peak_ops_per_s: float = PEAK_INT32_OPS_PER_S) -> dict:
+          peak_ops_per_s: float = PEAK_INT32_OPS_PER_S,
+          serial_ms: float = 0.0) -> dict:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops_per_s * 1e3
     return {"bytes": n_bytes, "ops": ops, "bytes_ms": t_bytes,
-            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "ops_ms": t_ops, "serial_ms": serial_ms,
+            "bound_ms": max(t_bytes, t_ops, serial_ms),
+            "bound_by": ("bytes" if t_bytes >= max(t_ops, serial_ms)
+                         else "operations")}
 
 
 def phase_times(dev, card: str, log) -> list[dict]:
@@ -809,7 +842,7 @@ def phase_times(dev, card: str, log) -> list[dict]:
             ms = event_ms(run_kernel, reps=5, inner=20)
             plain_ms = event_ms(run_plain, reps=3 if rows < FULL_ROWS else 1,
                                 inner=1)
-            b = program_bound(sched, rows, padded.shape[1], sets)
+            b = program_bound(sched, rows, padded.shape[1], sets, pack)
             row = {"kernel": "tap_run_program", "program": f"{fn}{radix}x"
                    f"{width}", "steps": compiled.n_steps, "rows": rows,
                    "cols": padded.shape[1], "variant": variant, "pack": pack,
@@ -819,7 +852,9 @@ def phase_times(dev, card: str, log) -> list[dict]:
             log(f"  time tap_run_program {row['program']} rows={rows} "
                 f"kernel {ms:.6f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{b['bound_ms']:.6f} ms ({b['bound_by']}: bytes "
-                f"{b['bytes_ms']:.6f} ms, int ops {b['ops_ms']:.6f} ms), "
+                f"{b['bytes_ms']:.6f} ms, int ops / 32 rows "
+                f"{b['ops_ms']:.6f} ms, serial steps {b['serial_ms']:.6f} "
+                f"ms; one op per row {b['per_row_ops_bound_ms']:.6f} ms), "
                 f"card {card}")
     lut = build_lut_nonblocked(tt.full_adder(3))
     sched = ref.ripple_add_schedule(lut, 3, 6)
@@ -840,7 +875,11 @@ def phase_times(dev, card: str, log) -> list[dict]:
         sets = int(counts[:, 0].long().sum())
         s_bytes = sum(t.nbytes for t in kernel.schedule_tensors(sched))
         per_row = sum(len(k) * len(c) for k, c, _, _ in sched)
-        b = bound(2 * rows * 7 + s_bytes, rows * per_row + sets)
+        ops = rows * per_row + sets
+        b = bound(2 * rows * 7 + s_bytes, -(-ops // ROWS_PER_OP),
+                  serial_ms=len(sched) * STEP_CHAIN_S * 1e3)
+        b["per_row_ops_bound_ms"] = max(b["bytes_ms"],
+                                        ops / PEAK_INT32_OPS_PER_S * 1e3)
         row = {"kernel": "tap_apply_schedule", "program": "ripple_add3x3",
                "steps": len(sched), "rows": rows, "cols": 7, "ms": ms,
                "plain_ms": plain_ms, **b, "card": card}
@@ -848,17 +887,18 @@ def phase_times(dev, card: str, log) -> list[dict]:
         log(f"  time tap_apply_schedule ripple_add3x3 rows={rows} kernel "
             f"{ms:.6f} ms, plain {plain_ms:.3f} ms, bound "
             f"{b['bound_ms']:.6f} ms ({b['bound_by']}: bytes "
-            f"{b['bytes_ms']:.6f} ms, int ops {b['ops_ms']:.6f} ms), "
-            f"card {card}")
+            f"{b['bytes_ms']:.6f} ms, int ops / 32 rows {b['ops_ms']:.6f} "
+            f"ms, serial steps {b['serial_ms']:.6f} ms; one op per row "
+            f"{b['per_row_ops_bound_ms']:.6f} ms), card {card}")
     return rows_out
 
 
 def phase_matmul_times(dev, card: str, log) -> list[dict]:
     """Ternary-matmul kernels, plain version and library product (a dense
     weight in x's dtype, no TF32) at the MLP shapes, and the program
-    kernel on the AP matmul's tile and reduction programs.  Where bf16 runs
-    on the tensor cores the CUDA-core kernel is timed too, through its own
-    launcher, on the same inputs."""
+    kernel on the AP matmul's tile and reduction programs.  Both matmul
+    kernels are timed on the same inputs at every shape: the routed one
+    through the wrapper, the other through its own launcher."""
     import torch
     from repro_torch import apc
     from repro_torch.apc.exec import BLOCK_ROWS, device_schedule
@@ -899,10 +939,11 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
             w, sc = dense[dtype]
             x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
             routed = tk.kernel_for(dtype, m)
-            runs = {routed: lambda: tk.ternary_matmul(x, packed, scale)}
-            if routed == "ternary_matmul_tc":
-                runs["ternary_matmul"] = lambda: tk._launch_cuda_cores(
-                    x, packed, scale)
+            runs = {"ternary_matmul": lambda: tk._launch_cuda_cores(
+                        x, packed, scale),
+                    "ternary_matmul_tc": lambda: tk._launch_tensor_cores(
+                        x, packed, scale)}
+            runs[routed] = lambda: tk.ternary_matmul(x, packed, scale)
             kernel_ms = {kname: (event_ms(fn, reps=5, inner=20),
                                  graph_ms(fn)) for kname, fn in runs.items()}
             plain_ms = event_ms(
@@ -912,8 +953,13 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
                                   inner=20)
             library_device_ms = graph_ms(lambda: torch.matmul(x, w) * sc)
             size = x.element_size()
-            b = bound(m * k * size + k * n // 4 + m * n * size, 2 * m * k * n,
-                      PEAK_FLOP_PER_S[name])
+            n_bytes = m * k * size + k * n // 4 + m * n * size
+            b = bound(n_bytes, 2 * m * k * n * MATMUL_PASSES[name],
+                      PEAK_BF16_FLOP_PER_S)
+            # beside it: fp32 x at the fp32-FMA rate
+            b["fp32_fma_bound_ms"] = max(b["bytes_ms"], 2 * m * k * n / (
+                PEAK_FP32_FMA_FLOP_PER_S if name == "float32"
+                else PEAK_BF16_FLOP_PER_S) * 1e3)
             for kname, (ms, device_ms) in kernel_ms.items():
                 row = {"kernel": kname, "routed": kname == routed,
                        "model": model, "m": m, "k": k, "n": n, "dtype": name,
@@ -926,31 +972,35 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
                     f" kernel {ms:.6f} ms (graph {device_ms:.6f}), plain "
                     f"{plain_ms:.3f} ms, library {library_ms:.6f} ms (graph "
                     f"{library_device_ms:.6f}), bound {b['bound_ms']:.6f} ms "
-                    f"({b['bound_by']}: bytes {b['bytes_ms']:.6f} ms, {name} "
-                    f"ops {b['ops_ms']:.6f} ms), card {card}")
+                    f"({b['bound_by']}: bytes {b['bytes_ms']:.6f} ms, "
+                    f"{MATMUL_PASSES[name]} bf16 pass(es) {b['ops_ms']:.6f} "
+                    f"ms; at the fp32-FMA rate {b['fp32_fma_bound_ms']:.6f} "
+                    f"ms), card {card}")
     weights.clear()
     torch.cuda.empty_cache()
 
-    # the tensor-core kernel at each M tile on the MLP's bf16 products
+    # the tensor-core kernel at each M tile on the MLP's products
     d, f = QWEN3_06B
     for k, n in ((d, f), (f, d)):
         packed = pack_ternary(torch.randint(-1, 2, (k, n), generator=gen,
                                             device=dev, dtype=torch.int8))
         scale = torch.rand(n, generator=gen, device=dev) * 0.04 + 0.01
         for m in MLP_TOKENS[1:]:
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            auto = tk.tc_m_tile(m, n, tk._sm_count(dev.index))
-            for bm in tk.TC_M_TILES:
-                ms = graph_ms(lambda: tk._launch_tensor_cores(
-                    x, packed, scale, bm=bm))
-                rows_out.append({"kernel": "ternary_matmul_tc", "tile": bm,
-                                 "chosen": bm == auto, "model": "qwen3-0.6b",
-                                 "m": m, "k": k, "n": n, "dtype": "bfloat16",
-                                 "device_ms": ms, "card": card})
-                log(f"  time ternary_matmul_tc M tile {bm}"
-                    f"{' (chosen)' if bm == auto else ''} M={m} K={k} N={n}"
-                    f" bf16 {ms:.6f} ms (graph), card {card}")
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype).split(".")[1]
+                x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+                auto = tk.tc_m_tile(m, n, tk._sm_count(dev.index))
+                for bm in tk.TC_M_TILES:
+                    ms = graph_ms(lambda: tk._launch_tensor_cores(
+                        x, packed, scale, bm=bm))
+                    rows_out.append({
+                        "kernel": "ternary_matmul_tc", "tile": bm,
+                        "chosen": bm == auto, "model": "qwen3-0.6b", "m": m,
+                        "k": k, "n": n, "dtype": name, "device_ms": ms,
+                        "card": card})
+                    log(f"  time ternary_matmul_tc M tile {bm}"
+                        f"{' (chosen)' if bm == auto else ''} M={m} K={k} "
+                        f"N={n} {name} {ms:.6f} ms (graph), card {card}")
 
     # the program kernel at the AP matmul's shape
     rng = np.random.default_rng(SEED + 7)
@@ -979,7 +1029,7 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
         _, counts = run_kernel()
         sets = int(counts[:, 0].long().sum())
         ms = event_ms(run_kernel, reps=3, inner=1)
-        b = program_bound(sched, rows, padded.shape[1], sets)
+        b = program_bound(sched, rows, padded.shape[1], sets, pack)
         row = {"kernel": "tap_run_program", "program": label,
                "steps": prog.n_steps, "rows": rows, "cols": padded.shape[1],
                "variant": variant, "pack": pack, "collect_stats": True,
@@ -987,8 +1037,9 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
         rows_out.append(row)
         log(f"  time tap_run_program {label} rows={rows} cols="
             f"{padded.shape[1]} steps={prog.n_steps} kernel {ms:.6f} ms per "
-            f"launch, bound {b['bound_ms']:.6f} ms ({b['bound_by']}), card "
-            f"{card}")
+            f"launch, bound {b['bound_ms']:.6f} ms ({b['bound_by']}; serial "
+            f"steps {b['serial_ms']:.6f} ms; one op per row "
+            f"{b['per_row_ops_bound_ms']:.6f} ms), card {card}")
     return rows_out
 
 

@@ -1,10 +1,17 @@
-// Shared step body of the TAP kernels: one thread owns one CAM row.
+// Shared parts of the TAP kernels.
 //
-// A row's digits sit column-major in shared memory (`row[col * stride]`), so
+// The scalar step body (slot_tag, slot_write, load_tile, store_tile) is the
+// short-schedule kernel's (tap_schedule.cu): one thread owns one CAM row,
+// whose digits sit column-major in shared memory (`row[col * stride]`), so
 // the dynamic column index of every compare and write is a shared-memory
 // address and never a register array that would spill to local memory.
 // Neighbouring threads own neighbouring rows, so a warp reading one column
 // touches 32 consecutive bytes: no bank conflicts.
+//
+// The byte-lane helpers at the end are the program kernel's
+// (tap_program.cu): there one 32-bit word of a column-major tile is four
+// rows of one column, and each helper works on the four bytes at once with
+// no carry crossing from one byte into the next.
 #pragma once
 
 #include <cstdint>
@@ -96,6 +103,59 @@ __device__ __forceinline__ void store_tile(int8_t* dst, const int8_t* tile,
     const int r = i / cols;
     dst[i] = tile[(i - r * cols) * stride + r];
   }
+}
+
+// ---------------------------------------------------------------------------
+// Four rows per 32-bit word.  A result "80" holds its flag in bit 7 of each
+// byte, 0 elsewhere.
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t kLow7 = 0x7f7f7f7fu;
+constexpr uint32_t kHigh = 0x80808080u;
+constexpr uint32_t kOnes = 0x01010101u;
+
+// bit 7 set in each byte of `a` that is not zero: the low seven bits plus
+// 0x7f carry into bit 7 unless they are all zero, and a's own bit 7 is or-ed
+// in; the sum of two values below 0x80 never carries out of the byte
+__device__ __forceinline__ uint32_t nonzero80(uint32_t a) {
+  return (((a & kLow7) + kLow7) | a) & kHigh;
+}
+
+// rows where the stored digit differs from the key digit and is not
+// don't-care (-1, byte 0xff)
+__device__ __forceinline__ uint32_t mismatch80(uint32_t v, uint32_t key4) {
+  return nonzero80(v ^ key4) & nonzero80(~v);
+}
+
+// rows whose byte is zero, for bytes below 0x80
+__device__ __forceinline__ uint32_t zero80(uint32_t small) {
+  return ~(small + kLow7) & kHigh;
+}
+
+// rows whose byte is at least b (1 <= b <= 0x80), for bytes below 0x80
+__device__ __forceinline__ uint32_t at_least80(uint32_t small, uint32_t b) {
+  return (small + (0x80u - b) * kOnes) & kHigh;
+}
+
+// 0xff in each byte whose bit 7 is set: PRMT with sign-replicating
+// selectors (bit 3 of each selector nibble; `__byte_perm` masks it off)
+__device__ __forceinline__ uint32_t bytes_of80(uint32_t f80) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, 0, 0xba98;\n" : "=r"(d) : "r"(f80));
+  return d;
+}
+
+// acc plus the bit-7 flags of f80 as one count per byte: f80 >> 7 taken as
+// the high word of f80 * 2^25, which the multiply-add pipe computes, not
+// the integer ALU the compares keep busy
+__device__ __forceinline__ uint32_t add_flags(uint32_t acc, uint32_t f80) {
+  return acc + __umulhi(f80, 1u << 25);
+}
+
+// the sum of the four bytes of a
+__device__ __forceinline__ int byte_sum(uint32_t a) {
+  const uint32_t pairs = (a & 0x00ff00ffu) + ((a >> 8) & 0x00ff00ffu);
+  return static_cast<int>((pairs & 0xffffu) + (pairs >> 16));
 }
 
 }  // namespace tap

@@ -1,86 +1,391 @@
 // Whole-program TAP kernel for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel `_tap_program_kernel` (entry `tap_run_program`)
-// of src/repro/kernels/tap_pass/kernel.py: replay a compiled AP program --
-// six dense schedule tensors -- over [rows, cols] int8 digits, with
-// per-block set/reset/mismatch-histogram counters.
+// of src/repro/kernels/tap_pass/kernel.py: replay a compiled AP program over
+// [rows, cols] int8 digits, with per-block set/reset/mismatch-histogram
+// counters.
 //
-// Design.  CAM rows are independent, so one thread owns one row for the
-// whole schedule and the step loop has no barrier.  A CTA stages its rows
-// in shared memory column-major (tap_common.cuh) and writes them back once:
-// the kernel moves 2 * rows * cols bytes of device memory.  The schedule
-// (up to ~1 MB for a 3x20 multiply) does not fit on chip, so it is read
-// from global memory; every thread of a warp reads the same address, which
-// L1 serves as a broadcast.
+// What bounds it.  Every step of the program is a dependent read-modify-
+// write of a few cells of each row.  Where there are many rows (2^20) the
+// integer ALU's issue bounds it; where there are few (the AP matmul's 12288
+// rows of 650 columns: one SM's shared memory holds only 357 of them, and
+// 93 rows per SM spread the work over the card) one warp per SM runs the
+// whole schedule, and the length of one step's instruction stream, branches
+// included, bounds it.  The first design -- one thread per row, the six
+// dense schedule tensors read from device memory at every step, K, C and W
+// runtime loop bounds -- spent about 66 SM-cycles per warp per step at
+// 2^20 rows and 404 at 12288 (PERF.md; scripts/tap_variants.py found no
+// single part that held most of it).
 //
-// Bound.  Each row does roughly sum_s (K_s * C_s + W_s) integer compares
-// and writes, against two bytes of traffic per cell: far above the byte
-// bound, so the kernel is bound by integer issue.
+// Design.
+// - Four rows per thread.  A CTA stages its rows column-major in shared
+//   memory, so one 32-bit word is four rows of one column and a warp's word
+//   reads are 128 consecutive bytes; a column holds an odd number of words,
+//   so the byte copies in and out hit distinct banks.  Compares, the
+//   mismatch count, the tag, the histogram and the writes work on the four
+//   bytes at once (tap_common.cuh's byte-lane helpers).
+// - Slot records.  The host encodes the schedule once per program into one
+//   fixed-size record per slot (kernels/tap_pass/records.py).  A column
+//   outside [0, cols) is encoded as the dummy column `cols`, an extra tile
+//   column of don't-care digits: a compare there always matches and a write
+//   of -1 there changes nothing.  The records are staged chunk by chunk
+//   into shared memory with `cp.async`, double-buffered (one barrier per
+//   chunk), and the next slot's record is read while this one computes.
+// - Unrolled kernels.  Programs with at most one key, four compare columns
+//   and three distinct write columns per slot and no packing -- every
+//   program on the main paths -- run on instantiations whose slot has no
+//   loop and no branch: a wide record (every column a word, every digit
+//   spread to four bytes, the no-key and histogram flags as byte masks),
+//   all cells loaded before any is written, padded cells on the dummy
+//   column, counters summed per row in byte lanes with the shift on the
+//   multiply-add pipe and added up once per chunk.  Any other program runs
+//   on the general instantiation: runtime K, C, W, serial writes, groups of
+//   `pack`, popcounts.
+// - Histogram without bins.  hist[b] = #(mm >= b) - #(mm >= b + 1), with
+//   #(mm >= 0) known on the host (valid rows x keys of the histogram
+//   slots); the unrolled kernels get #(mm >= b), b = 1..4, from four sums
+//   (rows with a mismatch, bit 1 of mm, bit 2 of mm, and mm itself).
+// - Grid.  A CTA's rows are chosen by the host so the grid gives each SM
+//   at least two CTAs where the rows allow it: 44 rows per CTA for the AP
+//   matmul's 12288 rows (279 CTAs), 1024 for 2^20 rows; at least four warps
+//   per CTA share the copies in and out.
 //
 // Counters.  A CTA never spans two `block_rows` blocks (grid = (n_blocks,
-// ceil(block_rows / threads))), so each CTA reduces its counters with warp
-// reductions and one atomicAdd per warp per counter into the block's row
-// of a zeroed (n_blocks, 2 + 8) int32 tensor.  Integer atomics are
+// ceil(block_rows / cta_rows))), so each CTA reduces its counters with warp
+// reductions and one atomicAdd per warp per counter into the block's row of
+// a zeroed (n_blocks, 2 + 8) int32 tensor.  Integer atomics are
 // order-independent: the counts are exact.
 //
 // Groups.  Slots run in groups of `pack`: every slot of a group takes its
 // tag against the pre-group row, then the slots' writes land in order.
-// `pack == 1` is the flat serial schedule; for `pack > 1` the packer
-// guarantees the slots of a group share no written column, so this equals
-// the one-hot blend of the reference.
+// `pack == 1` is the flat serial schedule (duplicate write columns apply one
+// after another, each change charged).
 #include "tap_common.cuh"
 
 namespace {
 
-template <bool kStats>
-__global__ void tap_program_kernel(
-    const int8_t* __restrict__ in, int8_t* __restrict__ out, int cols,
-    int block_rows, long long n_valid, const int32_t* __restrict__ cmp_cols,
-    const int8_t* __restrict__ keys, const uint8_t* __restrict__ key_valid,
-    const uint8_t* __restrict__ hist_flag,
-    const int32_t* __restrict__ wr_cols, const int8_t* __restrict__ wr_vals,
-    int n_groups, int pack, int K, int C, int W, int32_t* counts) {
-  extern __shared__ int8_t tile[];                 // [cols][blockDim.x]
-  const int stride = blockDim.x;
-  const int local0 = blockIdx.y * stride;          // first row in the block
-  const int n_rows = min(stride, block_rows - local0);
-  const long long row0 =
-      static_cast<long long>(blockIdx.x) * block_rows + local0;
-  tap::load_tile(tile, in + row0 * cols, n_rows, cols, stride);
-  __syncthreads();
+using tap::add_flags;
+using tap::at_least80;
+using tap::bytes_of80;
+using tap::mismatch80;
+using tap::nonzero80;
+using tap::zero80;
 
-  int sets = 0, resets = 0;
-  int hist[tap::kHistBins] = {0};
-  const int t = threadIdx.x;
-  // rows past n_valid are padding: no writes and no counts
-  if (t < n_rows && row0 + t < n_valid) {
-    int8_t* row = tile + t;
-    for (int g = 0; g < n_groups; ++g) {
-      unsigned tags = 0;
-      for (int p = 0; p < pack; ++p) {
-        const int s = g * pack + p;
-        const bool hist_on = kStats && hist_flag[s];
-        if (tap::slot_tag<kStats>(row, stride, cols, s, K, C, cmp_cols,
-                                  keys, key_valid, hist_on, hist))
-          tags |= 1u << p;
+constexpr int kMaxThreads = 256;
+constexpr int kMaxPack = 32;
+constexpr int kSatEvery = 120;    // general kernel: saturate mm this often
+
+struct Args {
+  const int8_t* in;
+  int8_t* out;
+  int cols;
+  int block_rows;
+  long long n_valid;
+  const uint4* records;
+  int n_slots;
+  int rec_words;
+  int chunk_slots;
+  int pack;
+  int K, C, W;                    // the record layout
+  int n_hist_keys;
+  int32_t* counts;
+  int cta_rows;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Per-thread counters: sets, resets and ge[b] = #(row, key) with at least b
+// mismatches, b = 1..7.
+struct Counts {
+  int sets = 0;
+  int resets = 0;
+  int ge[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+};
+
+// The unrolled kernels' counters within one chunk of records, one count
+// per row in each byte, added into Counts at the end of the chunk, before a
+// byte can reach 256 (a slot adds at most 3 sets and 4 mismatches).  With
+// mm <= 4 mismatches, #(mm >= b) for b = 1..4 follows from four sums:
+// any = #(mm >= 1), bit1 = #(mm in {2, 3}), bit2 = #(mm == 4) and
+// sum = the sum of mm = the sum of the four thresholds.
+struct LaneCounts {
+  uint32_t sets = 0, resets = 0;
+  uint32_t any = 0, bit1 = 0, bit2 = 0, sum = 0;
+
+  __device__ __forceinline__ void flush(Counts& n) {
+    using tap::byte_sum;
+    const int t1 = byte_sum(any), t4 = byte_sum(bit2);
+    const int t2 = byte_sum(bit1) + t4;
+    n.sets += byte_sum(sets);
+    n.resets += byte_sum(resets);
+    n.ge[1] += t1;
+    n.ge[2] += t2;
+    n.ge[3] += byte_sum(sum) - t1 - t2 - t4;
+    n.ge[4] += t4;
+    *this = LaneCounts();
+  }
+};
+
+template <bool kStats>
+__device__ __forceinline__ void write_cell(uint32_t* cell, uint32_t old,
+                                           uint32_t val4, uint32_t tag80,
+                                           uint32_t tag_bytes, Counts& n) {
+  if (kStats) {
+    const uint32_t changed = nonzero80(old ^ val4) & tag80;
+    n.sets += __popc(changed);
+    n.resets += __popc(changed & nonzero80(~old));
+  }
+  *cell = (old & ~tag_bytes) | (val4 & tag_bytes);
+}
+
+constexpr int kWideWords = 16;   // an unrolled kernel's record
+
+// One slot of an unrolled kernel: the wide record r (kCF compare columns,
+// one key, kWF distinct write columns), the thread's column-0 word at
+// `tile`, `ts` words per column.  Every cell is loaded before any is
+// written, and no branch depends on the slot: padded cells go to the dummy
+// column, and the record's last word carries the no-key and histogram
+// flags as byte masks.
+template <int kCF, int kWF, bool kStats>
+__device__ __forceinline__ void fast_slot(const uint32_t (&r)[kWideWords],
+                                          uint32_t* tile, int ts,
+                                          uint32_t valid80, LaneCounts& n) {
+  constexpr int kKeys = 1 + kCF;
+  constexpr int kWCols = kKeys + kCF;
+  constexpr int kWVals = kWCols + kWF;
+  static_assert(kWVals + kWF <= kWideWords, "a 16-word record");
+  uint32_t v[kCF], old[kWF];
+#pragma unroll
+  for (int j = 0; j < kCF; ++j) v[j] = tile[r[1 + j] * ts];
+#pragma unroll
+  for (int j = 0; j < kWF; ++j) old[j] = tile[r[kWCols + j] * ts];
+  uint32_t mm = 0;                      // mismatches per row, at most kCF
+#pragma unroll
+  for (int j = 0; j < kCF; ++j)
+    mm = add_flags(mm, mismatch80(v[j], r[kKeys + j]));
+  const uint32_t match80 = zero80(mm);
+  // the last word: bit 7 of each byte set for a slot with no key (every
+  // row tagged), bit 6 for a histogram slot
+  const uint32_t flags = r[kWideWords - 1];
+  const uint32_t tag80 = (match80 | flags) & valid80;
+  if (kStats) {
+    const uint32_t hist80 = (flags << 1) & valid80;
+    const uint32_t hist = bytes_of80(hist80);
+    n.any = add_flags(n.any, hist80 & ~match80);
+    n.bit1 += __umulhi(mm & 0x02020202u & hist, 1u << 31);
+    if (kCF > 3) n.bit2 += __umulhi(mm & 0x04040404u & hist, 1u << 30);
+    n.sum += mm & hist;
+  }
+  const uint32_t tag_bytes = bytes_of80(tag80);
+#pragma unroll
+  for (int j = 0; j < kWF; ++j) {
+    const uint32_t val4 = r[kWVals + j];
+    if (kStats) {
+      const uint32_t changed = nonzero80(old[j] ^ val4) & tag80;
+      n.sets = add_flags(n.sets, changed);
+      n.resets = add_flags(n.resets, changed & nonzero80(~old[j]));
+    }
+    tile[r[kWCols + j] * ts] = (old[j] & ~tag_bytes) | (val4 & tag_bytes);
+  }
+}
+
+// The tag of one slot of the general kernel (any K, C), with its
+// histogram thresholds.
+template <bool kStats>
+__device__ uint32_t general_tag(const uint32_t* rec, const uint32_t* tile,
+                                int ts, int C, uint32_t valid80,
+                                Counts& n) {
+  const int nk = static_cast<int>(rec[0] & 0xffffu);
+  if (nk == 0) return valid80;           // no key: an unconditional write
+  const bool hist = kStats && (rec[0] >> 16 & 1u);
+  const uint16_t* cc = reinterpret_cast<const uint16_t*>(rec + 1);
+  const uint8_t* keys =
+      reinterpret_cast<const uint8_t*>(rec + 1 + (C + 1) / 2);
+  uint32_t tag = 0;
+  for (int k = 0; k < nk; ++k) {
+    uint32_t mm = 0;
+    for (int c = 0; c < C; ++c) {
+      const uint32_t v = tile[cc[c] * ts];
+      mm += mismatch80(v, keys[k * C + c] * tap::kOnes) >> 7;
+      if (c % kSatEvery == kSatEvery - 1) {   // keep every byte below 0x80
+        const uint32_t big = bytes_of80(at_least80(mm, 8));
+        mm = (mm & ~big) | (0x07070707u & big);
       }
-      for (int p = 0; p < pack; ++p)
-        if (tags >> p & 1u)
-          tap::slot_write<kStats>(row, stride, cols, g * pack + p, W,
-                                  wr_cols, wr_vals, sets, resets);
+    }
+    tag |= zero80(mm);
+    if (hist) {
+#pragma unroll
+      for (int b = 1; b < 8; ++b)
+        n.ge[b] += __popc(at_least80(mm, b) & valid80);
+    } else if ((tag & valid80) == valid80) {
+      break;                             // no histogram: every row tagged
+    }
+  }
+  return tag & valid80;
+}
+
+template <bool kStats>
+__device__ void general_writes(const uint32_t* rec, uint32_t* tile, int ts,
+                               int K, int C, int W, uint32_t tag80,
+                               Counts& n) {
+  const int wc = 1 + (C + 1) / 2 + (K * C + 3) / 4;
+  const uint16_t* cols = reinterpret_cast<const uint16_t*>(rec + wc);
+  const uint8_t* vals =
+      reinterpret_cast<const uint8_t*>(rec + wc + (W + 1) / 2);
+  const uint32_t tag_bytes = bytes_of80(tag80);
+  for (int w = 0; w < W; ++w) {           // in order: duplicates serial
+    uint32_t* cell = tile + cols[w] * ts;
+    write_cell<kStats>(cell, *cell, vals[w] * tap::kOnes, tag80, tag_bytes,
+                       n);
+  }
+}
+
+// Copy n_rows rows of `cols` bytes (row-major in device memory) into the
+// column-major tile of `rows` bytes per column, and back.  Coalesced on the
+// device side; the row and column of each byte advance by a fixed step.
+__device__ __forceinline__ void copy_rows(uint8_t* tile, int8_t* dev,
+                                          int n_rows, int cols, int rows,
+                                          bool to_tile) {
+  const int n = n_rows * cols;
+  int r = threadIdx.x / cols;
+  int c = threadIdx.x % cols;
+  const int dr = blockDim.x / cols;
+  const int dc = blockDim.x % cols;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (to_tile)
+      tile[c * rows + r] = static_cast<uint8_t>(dev[i]);
+    else
+      dev[i] = static_cast<int8_t>(tile[c * rows + r]);
+    c += dc;
+    r += dr;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+}
+
+// kCF > 0: an unrolled kernel (one key, kCF compare columns, kWF distinct
+// write columns, pack 1); kCF == 0: the general kernel.
+template <int kCF, int kWF, bool kStats>
+__global__ void __launch_bounds__(kMaxThreads) tap_program_kernel(Args a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int chunk_words = a.chunk_slots * a.rec_words;
+  // [2][chunk_words] and one record more, which the read ahead of the
+  // last slot of the second buffer reaches
+  uint32_t* rec_buf = smem;
+  const int sw = a.cta_rows / 4;                     // rows / 4
+  const int ts = sw | 1;     // words per column: odd, so the byte copies
+                             // of consecutive columns hit distinct banks
+  uint32_t* tile = smem + 2 * chunk_words + a.rec_words;  // [cols + 1][ts]
+  const int local0 = blockIdx.y * a.cta_rows;        // first row in block
+  const int n_rows = min(a.cta_rows, a.block_rows - local0);
+  const long long row0 =
+      static_cast<long long>(blockIdx.x) * a.block_rows + local0;
+  const int t = threadIdx.x;
+
+  const auto stage = [&](int chunk) {
+    const uint4* src =
+        a.records + static_cast<long long>(chunk) * (chunk_words / 4);
+    uint4* dst = reinterpret_cast<uint4*>(rec_buf +
+                                          (chunk & 1) * chunk_words);
+    for (int i = t; i < chunk_words / 4; i += blockDim.x)
+      cp_async16(dst + i, src + i);
+  };
+  const int n_chunks = (a.n_slots + a.chunk_slots - 1) / a.chunk_slots;
+  if (n_chunks > 0) stage(0);
+  cp_async_commit();
+  copy_rows(reinterpret_cast<uint8_t*>(tile),
+            const_cast<int8_t*>(a.in) + row0 * a.cols, n_rows, a.cols,
+            4 * ts, true);
+  for (int q = t; q < sw; q += blockDim.x)
+    tile[a.cols * ts + q] = 0xffffffffu;             // the dummy column
+
+  // rows past n_valid are padding: no writes and no counts
+  uint32_t valid80 = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (4 * t + i < n_rows && row0 + 4 * t + i < a.n_valid)
+      valid80 |= 0x80u << (8 * i);
+  const bool active = t < sw && valid80 != 0;
+  uint32_t* my = tile + t;
+  Counts n;
+  LaneCounts lanes;
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    cp_async_wait_all();
+    __syncthreads();            // chunk ch staged, chunk ch - 1 consumed
+    if (ch + 1 < n_chunks) stage(ch + 1);
+    cp_async_commit();
+    if (!active) continue;
+    const uint32_t* rb = rec_buf + (ch & 1) * chunk_words;
+    const int n_here = min(a.chunk_slots, a.n_slots - ch * a.chunk_slots);
+    if constexpr (kCF > 0) {
+      const uint4* r4 = reinterpret_cast<const uint4*>(rb);
+      uint4 q[4] = {r4[0], r4[1], r4[2], r4[3]};
+#pragma unroll 2
+      for (int s = 0; s < n_here; ++s) {
+        uint32_t r[kWideWords];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          r[4 * i] = q[i].x;
+          r[4 * i + 1] = q[i].y;
+          r[4 * i + 2] = q[i].z;
+          r[4 * i + 3] = q[i].w;
+        }
+        // the next record, ahead of use (past the chunk's last one, a
+        // record that is not used)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) q[i] = r4[4 * s + 4 + i];
+        fast_slot<kCF, kWF, kStats>(r, my, ts, valid80, lanes);
+      }
+      if (kStats) lanes.flush(n);
+    } else {
+      for (int g = 0; g < n_here; g += a.pack) {
+        uint32_t tags[kMaxPack];
+        for (int p = 0; p < a.pack; ++p)
+          tags[p] = general_tag<kStats>(rb + (g + p) * a.rec_words, my, ts,
+                                        a.C, valid80, n);
+        for (int p = 0; p < a.pack; ++p)
+          if (tags[p])
+            general_writes<kStats>(rb + (g + p) * a.rec_words, my, ts, a.K,
+                                   a.C, a.W, tags[p], n);
+      }
     }
   }
   __syncthreads();
-  tap::store_tile(out + row0 * cols, tile, n_rows, cols, stride);
+  copy_rows(reinterpret_cast<uint8_t*>(tile), a.out + row0 * a.cols, n_rows,
+            a.cols, 4 * ts, false);
 
   if (kStats) {
-    int32_t* dst = counts + static_cast<size_t>(blockIdx.x) *
-                                (2 + tap::kHistBins);
+    int32_t* dst = a.counts + static_cast<size_t>(blockIdx.x) *
+                                  (2 + tap::kHistBins);
     int vals[2 + tap::kHistBins];
-    vals[0] = sets;
-    vals[1] = resets;
+    vals[0] = n.sets;
+    vals[1] = n.resets;
+    // bin 0 from every counted (row, key): the valid rows times the keys
+    // of the histogram slots
+    vals[2] = (active ? __popc(valid80) * a.n_hist_keys : 0) - n.ge[1];
 #pragma unroll
-    for (int b = 0; b < tap::kHistBins; ++b) vals[2 + b] = hist[b];
+    for (int b = 1; b < 7; ++b) vals[2 + b] = n.ge[b] - n.ge[b + 1];
+    vals[2 + 7] = n.ge[7];
 #pragma unroll
     for (int j = 0; j < 2 + tap::kHistBins; ++j) {
       const int v = __reduce_add_sync(0xffffffffu, vals[j]);
@@ -89,55 +394,66 @@ __global__ void tap_program_kernel(
   }
 }
 
-template <bool kStats>
+template <int kCF, int kWF, bool kStats>
 cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
-                   const int8_t* in, int8_t* out, int cols, int block_rows,
-                   long long n_valid, const int32_t* cmp_cols,
-                   const int8_t* keys, const uint8_t* key_valid,
-                   const uint8_t* hist_flag, const int32_t* wr_cols,
-                   const int8_t* wr_vals, int n_groups, int pack, int K,
-                   int C, int W, int32_t* counts) {
+                   const Args& a) {
+  auto* kernel = tap_program_kernel<kCF, kWF, kStats>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tap_program_kernel<kStats>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  tap_program_kernel<kStats><<<grid, threads, smem, stream>>>(
-      in, out, cols, block_rows, n_valid, cmp_cols, keys, key_valid,
-      hist_flag, wr_cols, wr_vals, n_groups, pack, K, C, W, counts);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool kStats>
+cudaError_t launch_kind(int kind, dim3 grid, int threads, size_t smem,
+                        cudaStream_t stream, const Args& a) {
+  switch (kind) {
+    case 0: return launch<0, 0, kStats>(grid, threads, smem, stream, a);
+    case 1: return launch<3, 3, kStats>(grid, threads, smem, stream, a);
+    case 2: return launch<4, 3, kStats>(grid, threads, smem, stream, a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  `rows` is a multiple of `block_rows`;
-// the schedule holds n_groups * pack slots; `counts` is a zeroed
-// (rows / block_rows, 10) int32 tensor, or null to skip the counters.
+// `records` holds n_slots records of `rec_words` int32 (a multiple of 4),
+// padded to whole chunks of `chunk_slots` (a multiple of `pack`, at most
+// 32), in the layout (K, C, W) of kernel `kind` (0 general, 1 and 2 the
+// unrolled (1, 3, 3) and (1, 4, 3)); `n_hist_keys` is the sum over the
+// histogram slots of their valid keys; `counts` is a zeroed
+// (rows / block_rows, 10) int32 tensor, or null to skip the counters;
+// `cta_rows` (a multiple of 4, at most 4 * threads) are the rows of one CTA.
 // Returns cudaGetLastError() after the launch.
 extern "C" int tap_run_program_launch(
     const void* in, void* out, long long rows, int cols, int block_rows,
-    long long n_valid, const void* cmp_cols, const void* keys,
-    const void* key_valid, const void* hist_flag, const void* wr_cols,
-    const void* wr_vals, int n_groups, int pack, int K, int C, int W,
-    void* counts, int threads, void* stream) {
+    long long n_valid, const void* records, int n_slots, int rec_words,
+    int chunk_slots, int pack, int kind, int K, int C, int W,
+    int n_hist_keys, void* counts, int cta_rows, int threads, void* stream) {
+  if (cta_rows % 4 || cta_rows > 4 * threads || threads > kMaxThreads ||
+      rec_words % 4 || pack < 1 || pack > kMaxPack || chunk_slots % pack ||
+      (kind != 0 && (pack != 1 || rec_words != kWideWords ||
+                     chunk_slots * 4 > 255)))     // LaneCounts' bytes
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const int8_t*>(in), static_cast<int8_t*>(out),
+               cols, block_rows, n_valid,
+               static_cast<const uint4*>(records), n_slots, rec_words,
+               chunk_slots, pack, K, C, W, n_hist_keys,
+               static_cast<int32_t*>(counts), cta_rows};
   const dim3 grid(static_cast<unsigned>(rows / block_rows),
-                  static_cast<unsigned>((block_rows + threads - 1) / threads));
-  const size_t smem = static_cast<size_t>(cols) * threads;
+                  static_cast<unsigned>((block_rows + cta_rows - 1) /
+                                        cta_rows));
+  const size_t smem =
+      4 * static_cast<size_t>(2 * chunk_slots + 1) * rec_words +
+      4 * static_cast<size_t>(cols + 1) * (cta_rows / 4 | 1);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto args = [&](auto launcher) {
-    return launcher(
-        grid, threads, smem, s, static_cast<const int8_t*>(in),
-        static_cast<int8_t*>(out), cols, block_rows, n_valid,
-        static_cast<const int32_t*>(cmp_cols),
-        static_cast<const int8_t*>(keys),
-        static_cast<const uint8_t*>(key_valid),
-        static_cast<const uint8_t*>(hist_flag),
-        static_cast<const int32_t*>(wr_cols),
-        static_cast<const int8_t*>(wr_vals), n_groups, pack, K, C, W,
-        static_cast<int32_t*>(counts));
-  };
-  const cudaError_t err = counts ? args(launch<true>) : args(launch<false>);
+  const cudaError_t err =
+      counts ? launch_kind<true>(kind, grid, threads, smem, s, a)
+             : launch_kind<false>(kind, grid, threads, smem, s, a);
   return static_cast<int>(err);
 }

@@ -5,7 +5,10 @@ Two kernels, each behind one wrapper:
 - :func:`tap_run_program` replays a whole compiled program (the six dense
   schedule tensors of :class:`repro_torch.apc.lower.CompiledProgram`) over
   row-blocks of int8 digits, with one (2 + 8) int32 counter row per
-  ``block_rows`` block.  CUDA source ``csrc/tap_program.cu``.
+  ``block_rows`` block.  CUDA source ``csrc/tap_program.cu``: four rows per
+  thread, the schedule as one slot record per step
+  (:mod:`.records`, encoded once per program and column count), and
+  unrolled instantiations for the programs of the main paths.
 - :func:`tap_apply_schedule` applies a short static schedule (a tuple of
   ``(keys, compare_cols, write_cols, write_vals)`` steps), no counters and
   no row mask.  CUDA source ``csrc/tap_schedule.cu``; it stages the whole
@@ -21,7 +24,9 @@ Both build through :mod:`repro_torch.kernels.cuda_lib`: ``nvcc`` for
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +34,7 @@ import torch
 
 from .. import cuda_lib
 from ..cuda_lib import I32 as _I, I64 as _LL, VP as _VP
+from .records import Records, build_records
 from .ref import HIST_BINS, Step, apply_schedule, run_program_plain
 
 BLOCK_ROWS = 1024
@@ -36,6 +42,8 @@ BLOCK_ROWS = 1024
 MAX_PACK = 32                    # slot tags of a group live in one uint32
 MAX_SMEM_BYTES = 232448          # dynamic shared memory a Hopper CTA may use
 MAX_THREADS = 256
+MIN_CTA_ROWS = 16                # program kernel: rows of the smallest CTA
+MAX_CTA_ROWS = 4 * MAX_THREADS   # program kernel: four rows per thread
 
 launch_counts = {"tap_run_program": 0, "tap_apply_schedule": 0}
 
@@ -44,8 +52,8 @@ _HEADERS = ("tap_common.cuh",)
 cuda_lib.register(cuda_lib.CudaLibrary(
     "tap_program", _CSRC, "tap_program.cu", _HEADERS,
     "tap_run_program_launch",
-    (_VP, _VP, _LL, _I, _I, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-     _I, _I, _VP, _I, _VP)))
+    (_VP, _VP, _LL, _I, _I, _LL, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+     _VP, _I, _I, _VP)))
 cuda_lib.register(cuda_lib.CudaLibrary(
     "tap_schedule", _CSRC, "tap_schedule.cu", _HEADERS,
     "tap_apply_schedule_launch",
@@ -142,17 +150,17 @@ def _launch_program(arr, sched, n_valid, block_rows, collect_stats, pack):
     if pack > MAX_PACK:
         raise ValueError(f"pack={pack} exceeds {MAX_PACK}")
     dev = arr.device
-    cmp_cols, keys, key_valid, hist_flag, wr_cols, wr_vals = (
-        program_tensors_on(sched, dev))
+    cmp_cols, keys, key_valid, hist_flag, wr_cols, wr_vals = sched
     n_slots, C = cmp_cols.shape
     K = keys.shape[1]
     W = wr_cols.shape[1]
     if n_slots % pack:
         raise ValueError(f"{n_slots} schedule slots not a multiple of "
                          f"pack={pack}")
-    if (keys.shape != (n_slots, K, C) or key_valid.shape != (n_slots, K)
-            or hist_flag.shape != (n_slots,)
-            or wr_vals.shape != (n_slots, W)):
+    if (tuple(keys.shape) != (n_slots, K, C)
+            or tuple(key_valid.shape) != (n_slots, K)
+            or tuple(hist_flag.shape) != (n_slots,)
+            or tuple(wr_vals.shape) != (n_slots, W)):
         raise ValueError("schedule tensors disagree on their shapes")
     arr = arr.contiguous()
     out = torch.empty_like(arr)
@@ -161,22 +169,83 @@ def _launch_program(arr, sched, n_valid, block_rows, collect_stats, pack):
                           device=dev) if collect_stats else None)
     if rows == 0:
         return out, counts
-    threads = _threads(cols, block_rows)
-    if -(-block_rows // threads) > 65535:
-        raise ValueError(f"block_rows={block_rows} needs more than 65535 "
-                         f"CTAs per block")
+    rec = program_records(sched, cols, pack, dev)
+    lay = rec.layout
+    cta_rows, threads = cta_shape(cols, block_rows, n_blocks,
+                                  4 * (2 * rec.chunk_slots + 1) * lay.words,
+                                  _sm_count(dev.index))
     launch = cuda_lib.entry("tap_program")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             arr.data_ptr(), out.data_ptr(), rows, cols, block_rows, n_valid,
-            cmp_cols.data_ptr(), keys.data_ptr(), key_valid.data_ptr(),
-            hist_flag.data_ptr(), wr_cols.data_ptr(), wr_vals.data_ptr(),
-            n_slots // pack, pack, K, C, W,
-            counts.data_ptr() if collect_stats else None, threads, stream)
+            rec.records.data_ptr(), rec.n_slots, lay.words, rec.chunk_slots,
+            pack, rec.kind, lay.K, lay.C, lay.W, rec.n_hist_keys,
+            counts.data_ptr() if collect_stats else None, cta_rows, threads,
+            stream)
     cuda_lib.check_status(err, "tap_run_program")
     launch_counts["tap_run_program"] += 1
     return out, counts
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cta_shape(cols: int, block_rows: int, n_blocks: int, record_bytes: int,
+              n_sm: int) -> tuple[int, int]:
+    """Rows and threads of a program-kernel CTA (four rows per thread).
+
+    The most rows (a multiple of 4, at most :data:`MAX_CTA_ROWS` and the
+    block) whose column-major tile, one dummy column included, fits in
+    shared memory beside the ``record_bytes`` of staged records; halved
+    while the grid gives fewer than two CTAs per SM, down to
+    :data:`MIN_CTA_ROWS`.  Threads: a whole number of warps covering the
+    rows, at least four warps, which share the copies in and out."""
+    # (cols + 1) columns of rows / 4 words, rounded up to an odd count
+    fit = ((MAX_SMEM_BYTES - record_bytes) // (cols + 1) - 4) // 4 * 4
+    rows = min(MAX_CTA_ROWS, fit, -(-block_rows // 4) * 4)
+    if rows < 4:
+        raise ValueError(f"{cols} columns do not fit a 4-row tile in "
+                         f"{MAX_SMEM_BYTES} bytes of shared memory")
+    while (rows > MIN_CTA_ROWS
+           and n_blocks * -(-block_rows // rows) < 2 * n_sm):
+        rows = max(MIN_CTA_ROWS, -(-rows // 8) * 4)
+    if -(-block_rows // rows) > 65535:
+        raise ValueError(f"block_rows={block_rows} needs more than 65535 "
+                         f"CTAs per block")
+    return rows, max(128, -(-rows // 128) * 32)
+
+
+# id of a live schedule tensor -> {(identities, versions, cols, pack,
+# device): Records}; an entry goes when its tensor does
+_records_on: dict[int, dict] = {}
+
+
+def program_records(sched, cols: int, pack: int, device) -> Records:
+    """The slot records of a schedule for a ``cols``-column tile, on
+    ``device``.  Cached while the schedule's tensors live and are not
+    modified in place (their ``_version``); numpy schedules are encoded
+    at each call."""
+    key = (tuple(id(t) for t in sched),
+           tuple(getattr(t, "_version", None) for t in sched), cols, pack,
+           str(device))
+    per = {}
+    if isinstance(sched[0], torch.Tensor):
+        per = _records_on.get(id(sched[0]))
+        if per is None:
+            per = _records_on[id(sched[0])] = {}
+            weakref.finalize(sched[0], _records_on.pop, id(sched[0]), None)
+    hit = per.get(key)
+    if hit is None:
+        host = build_records(sched, cols, pack)
+        hit = dataclasses.replace(
+            host, records=torch.from_numpy(host.records).to(device))
+        if len(per) >= 8:
+            per.pop(next(iter(per)))
+        per[key] = hit
+    return hit
 
 
 # ---------------------------------------------------------------------------

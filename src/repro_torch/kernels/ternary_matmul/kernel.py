@@ -5,11 +5,13 @@ version.
 scale`` with the weights 2-bit in device memory.  Given tensors on the CPU
 it runs the plain version :func:`~.ref.ternary_matmul_ref`; given CUDA
 tensors it launches one of two kernels, or raises.  :func:`kernel_for`
-picks: bf16 x with at least :data:`TC_MIN_M` rows runs on the tensor cores
-(``csrc/ternary_matmul_tc.cu``, ``mma.sync`` on B fragments decoded from the
-words in registers); fp32 x, and bf16 x with fewer rows, on the CUDA cores
-(``csrc/ternary_matmul.cu``, fp32 FMAs).  ``launch_counts`` counts the
-launches of each kernel (plain runs do not count).  Both build through
+picks by rows alone, for fp32 and bf16 x alike: at least :data:`TC_MIN_M`
+rows run on the tensor cores (``csrc/ternary_matmul_tc.cu``, ``mma.sync`` on
+B fragments decoded from the words in registers; fp32 x as three exact bf16
+passes; M tile from :func:`tc_m_tile`), fewer on the CUDA cores
+(``csrc/ternary_matmul.cu``, fp32 FMAs; a grid spread over the card by
+:func:`cuda_core_shape`).  ``launch_counts`` counts the launches of each
+kernel (plain runs do not count).  Both build through
 :mod:`repro_torch.kernels.cuda_lib`.
 """
 from __future__ import annotations
@@ -26,8 +28,11 @@ from .ref import PACK, ternary_matmul_ref
 BM_TILES = (1, 2, 4, 8, 16)        # M tiles of the CUDA-core kernel
 TC_M_TILES = (16, 64, 128)         # M tiles of the tensor-core kernel
 TC_PREFILL_TILE = 64               # the M tile for grids that fill the card
-TC_MIN_M = 16                      # bf16 rows from which the tensor cores run
+TC_MIN_M = 16                      # rows from which the tensor cores run
 TC_BN = 128                        # columns per CTA of the tensor-core kernel
+CC_COLS = (1, 4)                   # CUDA-core kernel: columns per lane
+CC_SPLITS = (1, 2, 4)              # CUDA-core kernel: CTAs splitting K
+CC_CHUNK_WORDS = 32                # CUDA-core kernel: words per K chunk
 MAX_GRID_Y = 65535
 
 launch_counts = {"ternary_matmul": 0, "ternary_matmul_tc": 0}
@@ -37,26 +42,44 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CSRC = Path(__file__).resolve().with_name("csrc")
 cuda_lib.register(cuda_lib.CudaLibrary(
     "ternary_matmul", _CSRC, "ternary_matmul.cu", (), "ternary_matmul_launch",
-    (_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _VP)))
+    (_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _I, _I, _VP)))
 cuda_lib.register(cuda_lib.CudaLibrary(
     "ternary_matmul_tc", _CSRC, "ternary_matmul_tc.cu", (),
     "ternary_matmul_tc_launch",
-    (_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _I, _VP)))
+    (_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _I, _I, _VP)))
 
 
 def kernel_for(dtype: torch.dtype, m: int) -> str:
-    """The kernel a CUDA call launches for x of ``dtype`` with ``m`` rows:
-    ``"ternary_matmul_tc"`` for bf16 with m >= TC_MIN_M, else
+    """The kernel a CUDA call launches for x with ``m`` rows, fp32 or bf16
+    alike: ``"ternary_matmul_tc"`` for m >= TC_MIN_M, else
     ``"ternary_matmul"``."""
-    if dtype == torch.bfloat16 and m >= TC_MIN_M:
-        return "ternary_matmul_tc"
-    return "ternary_matmul"
+    return "ternary_matmul_tc" if m >= TC_MIN_M else "ternary_matmul"
 
 
 def m_tile(m: int) -> int:
     """The CUDA-core kernel's M tile: the smallest of :data:`BM_TILES`
     covering ``min(m, 16)`` — a decode batch computes no padding rows."""
     return next(b for b in BM_TILES if b >= min(m, BM_TILES[-1]))
+
+
+def cuda_core_shape(m: int, n: int, k16: int, n_sm: int
+                    ) -> tuple[int, int, int]:
+    """The CUDA-core kernel's (M tile, columns per lane, K split): four
+    columns per lane (128 per CTA) where that grid gives each of the
+    ``n_sm`` SMs a CTA, else one (32 per CTA); then the K chunks split over
+    a cluster of 2 or 4 CTAs while the grid is smaller than the card and
+    every CTA keeps at least one chunk."""
+    bm = m_tile(m)
+    tiles = -(-m // bm)
+    cols = CC_COLS[-1] if -(-n // (32 * CC_COLS[-1])) * tiles >= n_sm \
+        else CC_COLS[0]
+    ctas = -(-n // (32 * cols)) * tiles
+    chunks = -(-k16 // CC_CHUNK_WORDS)
+    split = CC_SPLITS[0]
+    while (ctas * split < n_sm and split < CC_SPLITS[-1]
+           and chunks >= 2 * split):
+        split *= 2
+    return bm, cols, split
 
 
 def tc_m_tile(m: int, n: int, n_sm: int) -> int:
@@ -130,7 +153,7 @@ def _launch_cuda_cores(x, packed, scale):
     x, packed, scale, y = _checked(x, packed, scale)
     m, kx = x.shape
     k16, n = packed.shape
-    bm = m_tile(m)
+    bm, cols, split = cuda_core_shape(m, n, k16, _sm_count(x.device.index))
     if -(-m // bm) > MAX_GRID_Y:
         raise ValueError(f"M={m} needs more than {MAX_GRID_Y} row tiles")
     if m == 0 or n == 0:
@@ -140,18 +163,16 @@ def _launch_cuda_cores(x, packed, scale):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
                      y.data_ptr(), m, kx, k16, n, _DTYPES[x.dtype], bm,
-                     stream)
+                     cols, split, stream)
     cuda_lib.check_status(err, "ternary_matmul")
     launch_counts["ternary_matmul"] += 1
     return y
 
 
 def _launch_tensor_cores(x, packed, scale, bm=None):
-    """The tensor-core kernel, for bf16 x; ``bm`` overrides the M tile."""
+    """The tensor-core kernel, for either dtype (fp32 as three bf16
+    passes) and any M; ``bm`` overrides the M tile."""
     x, packed, scale, y = _checked(x, packed, scale)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"ternary_matmul_tc: x must be bfloat16, got "
-                         f"{x.dtype}")
     m, kx = x.shape
     k16, n = packed.shape
     if bm is None:
@@ -164,14 +185,14 @@ def _launch_tensor_cores(x, packed, scale, bm=None):
     if m == 0 or n == 0:
         return y
     # 16-byte cp.async needs every row start 16-byte aligned
-    x_vec = kx % 8 == 0 and x.data_ptr() % 16 == 0
+    x_vec = (kx * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
     w_vec = n % 4 == 0 and packed.data_ptr() % 16 == 0
     launch = cuda_lib.entry("ternary_matmul_tc")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                     y.data_ptr(), m, kx, k16, n, bm, int(x_vec),
-                     int(w_vec), stream)
+                     y.data_ptr(), m, kx, k16, n, _DTYPES[x.dtype], bm,
+                     int(x_vec), int(w_vec), stream)
     cuda_lib.check_status(err, "ternary_matmul_tc")
     launch_counts["ternary_matmul_tc"] += 1
     return y

@@ -72,3 +72,36 @@ def ternary_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
         x = F.pad(x, (0, kp - x.shape[1]))
     y = x.to(torch.float32) @ w
     return (y * scale[None, :]).to(x.dtype)
+
+
+def split_bf16x3(x: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fp32 x as three bf16 parts, x = hi + mid + lo, as the tensor-core
+    kernel splits it: hi is x with the low 16 bits of its word cleared, mid
+    the same of x - hi, lo = x - hi - mid.  Each difference is exact in
+    fp32 and each part holds at most 8 significant bits, so the parts add
+    back to x exactly for |x| >= 2^-110 (a zero gives (+-0, +0, +0)); an
+    infinite x gives (x, 0, 0)."""
+    x = x.to(torch.float32)
+
+    def top(v):                          # the top half of v's word, exact
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    hi = top(x)
+    r = torch.where(x == hi, torch.zeros_like(x), x - hi)
+    mid = top(r)
+    return hi.to(torch.bfloat16), mid.to(torch.bfloat16), \
+        (r - mid).to(torch.bfloat16)
+
+
+def ternary_matmul_3pass(x: torch.Tensor, packed: torch.Tensor,
+                         scale: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel's fp32 product, plainly: the three bf16 parts
+    of x (:func:`split_bf16x3`) each times the weights, exact, summed in
+    fp32, times scale, rounded once to x's dtype."""
+    w = unpack_ternary(packed, dtype=torch.float32)
+    kp = w.shape[0]
+    if x.shape[1] < kp:
+        x = F.pad(x, (0, kp - x.shape[1]))
+    acc = sum(part.to(torch.float32) @ w for part in split_bf16x3(x))
+    return (acc * scale[None, :]).to(x.dtype)

@@ -241,3 +241,222 @@ def test_ap_matmul_on_the_card_matches_ref(dev):
     cyc = ap_matmul_cycle_counts(3, 48, width, k_tile=7)
     assert (st.n_write_cycles, st.n_compare_cycles) == (
         cyc["write_cycles"], cyc["compare_cycles"])
+
+
+# ---------------------------------------------------------------------------
+# The program kernel's semantics (four rows per thread, slot records)
+# ---------------------------------------------------------------------------
+
+VARIANTS = ("gather", "onehot", "onehot_packed")
+MAX_SLOTS = 3000          # the plain replay's time grows with the slots
+
+
+def _program_at(cols):
+    """A program of 41 (add 3x20), 145 (the AP matmul's reduction) or 650
+    (its tile program) columns."""
+    if cols == 41:
+        return apc.compile_named("add", 3, 20)
+    width = apc.mac_acc_width(3, 1024, 7)
+    tiled = apc.compile_mac_tiled(3, 1024, width, 64)
+    return tiled.programs[0] if cols == 650 else tiled.reduce_programs[0]
+
+
+def _first_slots(sched, pack, n=MAX_SLOTS):
+    """The schedule's first n slots (whole groups of pack)."""
+    keep = min(sched[0].shape[0], n // pack * pack)
+    return tuple(t[:keep] for t in sched)
+
+
+@pytest.mark.parametrize("kv", VARIANTS)
+@pytest.mark.parametrize("cols", [41, 145, 650])
+@pytest.mark.parametrize("rows,block_rows,n_valid", [
+    (1000, 10, 955),          # blocks smaller than a CTA's rows
+    (8192, 4096, 8000)])      # blocks of several CTAs
+def test_program_kernel_at_widths_and_blocks(dev, cols, kv, rows,
+                                             block_rows, n_valid):
+    """Digits of every value a cell may hold (-1, 0..radix), padding rows
+    past n_valid, each schedule form: digits and every counter row equal
+    to the plain version, counters on and off."""
+    prog = _program_at(cols)
+    assert prog.min_cols == cols
+    sched, _, pack, _ = apc.resolve_schedule(prog, kv)
+    sched = _first_slots(sched, pack)
+    arr = _digits(rows, cols, 3, cols + rows).to(dev)
+    for stats in (True, False):
+        out, counts = kernel.tap_run_program(
+            arr, *sched, n_valid, block_rows=block_rows,
+            collect_stats=stats, pack=pack)
+        want, want_counts = ref.run_program_plain(
+            arr, *sched, n_valid, block_rows=block_rows,
+            collect_stats=stats, pack=pack)
+        assert torch.equal(out, want)
+        if stats:
+            assert counts.shape == (rows // block_rows, 10)
+            assert torch.equal(counts, want_counts)
+
+
+def _random_schedule(rng, S, K, C, W, cols, distinct_writes):
+    """Any int8 keys and values, columns past ``cols`` and -1 padding,
+    slots with no valid key, histogram flags on and off."""
+    cmp_cols = rng.integers(-1, cols + 3, (S, C))
+    keys = np.where(rng.random((S, K, C)) < 0.7,
+                    rng.integers(-1, 3, (S, K, C)),
+                    rng.integers(-128, 128, (S, K, C)))
+    key_valid = rng.random((S, K)) < 0.7
+    hist_flag = rng.random(S) < 0.8
+    if distinct_writes:
+        wr_cols = np.stack([rng.choice(cols + 3, W, replace=False) - 1
+                            for _ in range(S)])
+    else:                              # duplicates apply serially
+        wr_cols = rng.integers(-1, cols + 2, (S, W))
+        wr_cols[:, 1] = wr_cols[:, 0]
+    wr_vals = np.where(rng.random((S, W)) < 0.7, rng.integers(-1, 3, (S, W)),
+                       rng.integers(-128, 128, (S, W)))
+    return (cmp_cols.astype(np.int32), keys.astype(np.int8), key_valid,
+            hist_flag, wr_cols.astype(np.int32), wr_vals.astype(np.int8))
+
+
+@pytest.mark.parametrize("K,C,W,pack,distinct,kind", [
+    (1, 3, 3, 1, True, 1),          # the unrolled kernels
+    (1, 4, 3, 1, True, 2),
+    (1, 2, 1, 1, True, 1),
+    (3, 12, 4, 1, False, 0),        # the general kernel: mm past bin 7
+    (2, 4, 3, 1, True, 0),
+    (1, 4, 3, 2, True, 0),          # groups: tags against the pre-group row
+    (2, 3, 2, 4, False, 0)])
+def test_program_kernel_random_schedules(dev, K, C, W, pack, distinct,
+                                         kind):
+    """Every semantic at once, on any int8 digits: -1 matches any key,
+    columns outside [0, cols) are skipped, a slot with no valid key writes
+    unconditionally, duplicate compare columns count per position,
+    duplicate write columns apply serially, groups of ``pack`` tag against
+    the pre-group row, rows past n_valid are untouched and uncounted, the
+    histogram is per valid key on histogram slots with its top bin
+    saturating.  The plain version reads a skipped column as -1."""
+    from repro_torch.kernels.tap_pass.records import choose_layout
+    rng = np.random.default_rng(K * 100 + C * 10 + W + pack)
+    cols = 40
+    sched = _random_schedule(rng, 96, K, C, W, cols, distinct)
+    assert choose_layout(sched, pack)[0] == kind
+    plain = list(sched)
+    plain[0] = np.where(sched[0] < cols, sched[0], -1).astype(np.int32)
+    plain[4] = np.where(sched[4] < cols, sched[4], -1).astype(np.int32)
+    digits = np.where(rng.random((515, cols)) < 0.6,
+                      rng.integers(-1, 3, (515, cols)),
+                      rng.integers(-128, 128, (515, cols))).astype(np.int8)
+    arr = torch.from_numpy(digits).to(dev)
+    on_dev = tuple(torch.from_numpy(t).to(dev) for t in sched)
+    for block_rows in (5, 103, 515):
+        out, counts = kernel.tap_run_program(
+            arr, *on_dev, 500, block_rows=block_rows, collect_stats=True,
+            pack=pack)
+        want, want_counts = ref.run_program_plain(
+            arr, *(torch.from_numpy(t).to(dev) for t in plain), 500,
+            block_rows=block_rows, collect_stats=True, pack=pack)
+        assert torch.equal(out, want)
+        assert torch.equal(counts, want_counts)
+        assert torch.equal(out[500:], arr[500:])
+
+
+def test_program_records_cached_per_program(dev):
+    """The records are encoded once per schedule tensors and column count;
+    an in-place change of a schedule tensor encodes them again."""
+    compiled = apc.compile_named("add", 3, 4)
+    sched = tuple(torch.from_numpy(np.asarray(t)).to(dev)
+                  for t in compiled.schedule_tensors)
+    first = kernel.program_records(sched, 13, 1, dev)
+    assert kernel.program_records(sched, 13, 1, dev) is first
+    assert kernel.program_records(sched, 14, 1, dev) is not first
+    sched[5].add_(0)
+    assert kernel.program_records(sched, 13, 1, dev) is not first
+
+
+# ---------------------------------------------------------------------------
+# The packed-ternary matmul: fp32 on the tensor cores, and decode
+# ---------------------------------------------------------------------------
+
+FP32_TC_SHAPES = [(16, 17, 129), (17, 300, 257), (2048, 513, 130),
+                  (16, 513, 1), (17, 17, 96), (2048, 300, 3072),
+                  (2048, 1024, 3072)]
+
+
+def _routed(tk, x, packed, scale, name):
+    before = dict(tk.launch_counts)
+    y = tk.ternary_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert tk.kernel_for(x.dtype, x.shape[0]) == name
+    assert tk.launch_counts == {k: n + (k == name)
+                                for k, n in before.items()}
+    return y
+
+
+@pytest.mark.parametrize("m,k,n", FP32_TC_SHAPES)
+def test_fp32_on_tensor_cores(dev, m, k, n):
+    """fp32 x with M >= 16 runs on the tensor cores as three bf16 passes:
+    within 1e-4 of the plain version, and bit for bit on integers (|x| <=
+    7, and up to 2^19 at K = 17)."""
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.kernels.ternary_matmul.ref import (pack_ternary,
+                                                        ternary_matmul_ref)
+    x, packed, scale = _packed_case(m, k, n, m + k + n, torch.float32)
+    x, packed, scale = x.to(dev), packed.to(dev), scale.to(dev)
+    y = _routed(tk, x, packed, scale, "ternary_matmul_tc")
+    assert y.dtype == torch.float32 and y.shape == (m, n)
+    torch.testing.assert_close(y, ternary_matmul_ref(x, packed, scale),
+                               atol=1e-4, rtol=1e-4)
+    rng = np.random.default_rng(m * k)
+    big = (1 << 19) - 1 if k == 17 else 7
+    w_t = torch.from_numpy(
+        rng.integers(-1, 2, (-(-k // 16) * 16, n)).astype(np.int8))
+    xi = torch.from_numpy(rng.integers(-big, big + 1, (m, k)).astype(
+        np.float32)).to(dev)
+    packed = pack_ternary(w_t).to(dev)
+    y = _routed(tk, xi, packed, scale, "ternary_matmul_tc")
+    assert torch.equal(y, ternary_matmul_ref(xi, packed, scale))
+
+
+def test_fp32_on_tensor_cores_unaligned_rows(dev):
+    """x whose rows do not start on 16 bytes (an offset storage, K = 300)
+    takes the element-by-element staging: the same result."""
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.kernels.ternary_matmul.ref import ternary_matmul_ref
+    x, packed, scale = _packed_case(40, 300, 130, 9, torch.float32)
+    buf = torch.empty(40 * 300 + 1, device=dev)
+    xu = buf[1:].view(40, 300)
+    xu.copy_(x.to(dev))
+    assert xu.data_ptr() % 16 != 0 and xu.is_contiguous()
+    packed, scale = packed.to(dev), scale.to(dev)
+    y = _routed(tk, xu, packed, scale, "ternary_matmul_tc")
+    torch.testing.assert_close(y, ternary_matmul_ref(xu, packed, scale),
+                               atol=1e-4, rtol=1e-4)
+    for bm in (16, 64, 128):
+        torch.testing.assert_close(
+            tk._launch_tensor_cores(xu, packed, scale, bm=bm), y, atol=1e-4,
+            rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 8, 15])
+def test_decode_on_cuda_cores(dev, m, dtype):
+    """Decode batches (M < 16) run on the CUDA-core kernel with its grid
+    spread over the card (K split over a cluster at qwen3-0.6b's widths):
+    within tolerance of the plain version, exact on integers."""
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.kernels.ternary_matmul.ref import (pack_ternary,
+                                                        ternary_matmul_ref)
+    for k, n in ((1024, 3072), (3072, 1024), (1000, 130)):
+        x, packed, scale = _packed_case(m, k, n, m + k, dtype)
+        x, packed, scale = x.to(dev), packed.to(dev), scale.to(dev)
+        y = _routed(tk, x, packed, scale, "ternary_matmul")
+        tol = 1e-4 if dtype == torch.float32 else 5e-2
+        torch.testing.assert_close(
+            y.float(), ternary_matmul_ref(x, packed, scale).float(),
+            atol=tol, rtol=tol)
+        rng = np.random.default_rng(k + m)
+        w_t = torch.from_numpy(
+            rng.integers(-1, 2, (-(-k // 16) * 16, n)).astype(np.int8))
+        xi = torch.from_numpy(rng.integers(-7, 8, (m, k)).astype(
+            np.float32)).to(dev, dtype)
+        packed = pack_ternary(w_t).to(dev)
+        y = _routed(tk, xi, packed, scale, "ternary_matmul")
+        assert torch.equal(y, ternary_matmul_ref(xi, packed, scale))

@@ -226,3 +226,125 @@ def test_schedule_columns_checked_on_the_host():
     lut = build_lut_nonblocked(tt.full_adder(3))
     with pytest.raises(ValueError, match="column >= 4"):
         ops.tap_ripple_add(arr, lut, 8, 16, device="cpu")   # > 64 steps
+
+
+# ---------------------------------------------------------------------------
+# Slot records: the CUDA program kernel's form of a schedule
+# ---------------------------------------------------------------------------
+
+def _mac_program(which):
+    width = apc.mac_acc_width(3, 64, 7)
+    tiled = apc.compile_mac_tiled(3, 64, width, 16)
+    return (tiled.programs[0] if which == "tile"
+            else tiled.reduce_programs[0])
+
+
+def _padded_to(sched, layout):
+    """The dense tensors widened to the layout: -1 columns, 0 keys and
+    values, invalid keys."""
+    cmp_cols, keys, key_valid, hist_flag, wr_cols, wr_vals = (
+        np.asarray(t) for t in sched)
+    S = cmp_cols.shape[0]
+
+    def widen(a, shape, fill):
+        out = np.full(shape, fill, a.dtype)
+        out[tuple(slice(0, n) for n in a.shape)] = a[
+            tuple(slice(0, n) for n in shape)]
+        return out
+    return (widen(cmp_cols, (S, layout.C), -1),
+            widen(keys, (S, layout.K, layout.C), 0),
+            widen(key_valid.astype(bool), (S, layout.K), False),
+            hist_flag.astype(bool),
+            widen(wr_cols, (S, layout.W), -1),
+            widen(wr_vals, (S, layout.W), 0))
+
+
+@pytest.mark.parametrize("kv", VARIANTS)
+@pytest.mark.parametrize("name", ["add3x4", "add3x4_blocked", "max3x4",
+                                  "sub5x3_blocked", "mul3x2",
+                                  "dup_write_cols", "hist12", "mac_tile",
+                                  "mac_reduce"])
+def test_records_decode_to_the_dense_schedule(name, kv):
+    """Encoding a compiled program's schedule into slot records and
+    decoding them gives the six dense tensors back, at the record
+    layout's widths, for every schedule form."""
+    from repro_torch.kernels.tap_pass import records
+    prog = (_mac_program(name[4:]) if name.startswith("mac")
+            else _programs(name)[1])
+    sched, _, pack, _ = apc.resolve_schedule(prog, kv)
+    cols = prog.min_cols + 1
+    rec = records.build_records(sched, cols, pack)
+    assert rec.records.dtype == np.int32
+    assert rec.records.shape[1] == rec.layout.words
+    assert rec.layout.words % 4 == 0
+    assert rec.records.shape[0] % rec.chunk_slots == 0
+    assert rec.chunk_slots % pack == 0
+    assert rec.n_slots == sched[0].shape[0]
+    got = records.decode_records(rec.records[:rec.n_slots], cols, rec.layout)
+    for a, b in zip(got, _padded_to(sched, rec.layout)):
+        assert a.dtype == b.dtype or a.dtype == bool
+        assert np.array_equal(a, b)
+    nk = np.asarray(sched[2]).astype(bool).sum(axis=1)
+    assert rec.n_hist_keys == int((nk * np.asarray(sched[3])).sum())
+    padding = records.decode_records(rec.records[rec.n_slots:], cols,
+                                     rec.layout)
+    assert (padding[0] == -1).all() and (padding[4] == -1).all()
+    assert not padding[2].any() and not padding[3].any()
+
+
+@pytest.mark.parametrize("name,kv,kind", [
+    ("add3x4", "gather", 1), ("mul3x2", "gather", 2),
+    ("max3x4", "onehot", 1), ("mac_tile", "gather", 2),
+    ("mac_reduce", "gather", 1), ("add3x4_blocked", "gather", 0),
+    ("sub5x3_blocked", "gather", 0), ("dup_write_cols", "gather", 0),
+    ("hist12", "gather", 0), ("max3x4", "onehot_packed", 0)])
+def test_records_choose_the_unrolled_kernels(name, kv, kind):
+    """One key, at most four compare and three distinct write columns, no
+    packing: an unrolled kernel (kind 1 for three compare columns, 2 for
+    four), in the wide layout; anything else the general kernel (kind 0)
+    in the program's own packed layout."""
+    from repro_torch.kernels.tap_pass import records
+    prog = (_mac_program(name[4:]) if name.startswith("mac")
+            else _programs(name)[1])
+    sched, _, pack, _ = apc.resolve_schedule(prog, kv)
+    got, layout = records.choose_layout(sched, pack)
+    assert got == kind and layout.wide == (kind != 0)
+    if kind:
+        assert layout.words == 16 and (layout.K, layout.W) == (1, 3)
+
+
+def test_records_map_outside_columns_to_the_dummy_column():
+    """-1 and columns past ``cols`` become the dummy column ``cols`` (a
+    write there carries -1); the valid keys move first."""
+    from repro_torch.kernels.tap_pass import records
+    sched = (np.array([[2, -1, 7]], np.int32),
+             np.array([[[9, 9, 9], [1, 2, 3]]], np.int8),
+             np.array([[False, True]]), np.array([True]),
+             np.array([[5, 0, -1]], np.int32), np.array([[1, 2, 3]], np.int8))
+    layout = records.Layout(2, 3, 3)
+    rec = records.encode_records(sched, 6, layout)
+    cmp_cols, keys, key_valid, hist, wr_cols, wr_vals = (
+        records.decode_records(rec, 6, layout))
+    assert cmp_cols.tolist() == [[2, -1, -1]]
+    assert keys[0, 0].tolist() == [1, 2, 3] and keys[0, 1].tolist() == [0] * 3
+    assert key_valid.tolist() == [[True, False]] and hist.tolist() == [True]
+    assert wr_cols.tolist() == [[5, 0, -1]] and wr_vals.tolist() == [[1, 2, 0]]
+    raw = rec.view(np.uint8)
+    assert raw[0, 4 * layout.wcols_at + 4:4 * layout.wcols_at + 6].view(
+        "<u2")[0] == 6                          # the dummy column
+    with pytest.raises(ValueError, match="does not fit"):
+        records.encode_records(sched, 6, records.Layout(2, 2, 3))
+
+
+@pytest.mark.parametrize("cols,block_rows,n_blocks,want", [
+    (41, 4096, 256, (1024, 256)),     # add 3x20 at 2^20 rows
+    (650, 4096, 3, (44, 128)),        # the AP matmul's tile program
+    (145, 4096, 3, (32, 128)),        # its reduction
+    (41, 10, 100, (12, 128)),         # blocks smaller than a CTA
+    (41, 333, 1, (16, 128)),
+    (258, 4096, 16, (220, 128))])
+def test_program_kernel_cta_shape(cols, block_rows, n_blocks, want):
+    """Four rows per thread, the most rows whose tile fits in shared
+    memory, halved until the grid gives each of 132 SMs two CTAs; never
+    more rows than a block."""
+    assert kernel.cta_shape(cols, block_rows, n_blocks, 4096, 132) == want

@@ -235,12 +235,91 @@ def test_new_modules_load_no_jax_and_default_to_cuda():
     (torch.bfloat16, 15, "ternary_matmul"),
     (torch.bfloat16, 1, "ternary_matmul"),
     (torch.float32, 1, "ternary_matmul"),
-    (torch.float32, 16, "ternary_matmul"),
-    (torch.float32, 2048, "ternary_matmul")])
+    (torch.float32, 16, "ternary_matmul_tc"),
+    (torch.float32, 2048, "ternary_matmul_tc")])
 def test_routing_rule(dtype, m, want):
-    """bf16 x with M >= 16 goes to the tensor-core kernel; bf16 with
-    M < 16 and fp32 at any M to the CUDA-core kernel."""
+    """One rule for both dtypes: M >= 16 goes to the tensor-core kernel
+    (fp32 as three bf16 passes), M < 16 to the CUDA-core kernel."""
     assert kernel.kernel_for(dtype, m) == want
+
+
+@pytest.mark.parametrize("m,n,k16,want", [
+    (1, 3072, 64, (1, 1, 2)),          # qwen3-0.6b w1: 96 CTAs x 2
+    (1, 1024, 192, (1, 1, 4)),         # qwen3-0.6b w2: 32 CTAs x 4
+    (4, 3072, 64, (4, 1, 2)), (8, 3072, 64, (8, 1, 2)),
+    (15, 3072, 64, (16, 1, 2)),
+    (1, 29568, 512, (1, 4, 1)),        # qwen2-72b w1: 231 CTAs
+    (1, 96, 1, (1, 1, 1)),             # one K chunk: nothing to split
+    (3, 130, 63, (4, 1, 2))])
+def test_cuda_core_grid_fills_the_card(m, n, k16, want):
+    """128 columns per CTA where that grid gives each of 132 SMs a CTA,
+    else 32, with the K chunks split over a cluster of 2 or 4 CTAs while
+    the grid is smaller than the card."""
+    assert kernel.cuda_core_shape(m, n, k16, 132) == want
+
+
+def _split_inputs():
+    """Seeded fp32: normals, large and tiny magnitudes (down to 2^-110),
+    the largest finite values, integers up to 2^24, signed zeros and
+    infinities."""
+    rng = np.random.default_rng(31)
+    big = np.finfo(np.float32).max
+    vals = [rng.normal(0, 1, 4096),
+            rng.normal(0, 1, 512) * 10.0 ** rng.integers(-30, 38, 512),
+            rng.uniform(1, 2, 256) * 2.0 ** rng.integers(-110, -60, 256),
+            rng.integers(-(1 << 24), (1 << 24) + 1, 1024),
+            [big, -big, np.nextafter(big, 0), 1 << 24, -(1 << 24),
+             (1 << 24) - 1, 0.0, -0.0, np.inf, -np.inf]]
+    return torch.from_numpy(np.concatenate(vals).astype(np.float32))
+
+
+def test_bf16x3_split_is_exact():
+    """hi + mid + lo gives x back bit for bit, every part a bf16 value;
+    a zero keeps its sign in hi (mid and lo +0, so the fp32 sum of a -0
+    reads +0), an infinity is all hi."""
+    x = _split_inputs()
+    parts = ref.split_bf16x3(x)
+    assert all(p.dtype == torch.bfloat16 for p in parts)
+    hi, mid, lo = (p.to(torch.float32) for p in parts)
+    back = (hi + mid) + lo
+    finite = torch.isfinite(x) & (x != 0)
+    assert torch.equal(back[finite].view(torch.int32),
+                       x[finite].view(torch.int32))
+    zero = x == 0
+    assert torch.equal(hi[zero].view(torch.int32), x[zero].view(torch.int32))
+    assert not (mid[zero].view(torch.int32).any()
+                or lo[zero].view(torch.int32).any())
+    inf = torch.isinf(x)
+    assert torch.equal(hi[inf], x[inf]) and not mid[inf].any()
+    assert not lo[inf].any()
+    # each part holds at most 8 significant bits: bf16 of it is itself
+    for p in (hi, mid, lo):
+        assert torch.equal(p.to(torch.bfloat16).to(torch.float32), p)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 16, 8), (32, 256, 128),
+                                   (100, 300, 96), (17, 513, 257)])
+def test_three_pass_product_matches_reference(m, k, n):
+    """The three-pass product (the tensor-core kernel's fp32 arithmetic)
+    within 1e-4 of the reference's kernel (interpret mode), and exact on
+    integer activations."""
+    _, (t_packed, t_scale), (o_packed, o_scale) = _ref_weights(
+        k, n, m * 1000 + k + n + 1)
+    tx, ox = _x(m, k, 2, torch.float32)
+    want = np.asarray(ref_ops.ternary_matmul_op(tx, t_packed, t_scale))
+    y = ref.ternary_matmul_3pass(ox, o_packed, o_scale)
+    assert y.dtype == torch.float32 and tuple(y.shape) == (m, n)
+    np.testing.assert_allclose(y.numpy(), want, atol=1e-4, rtol=1e-4)
+    xi = np.random.default_rng(m + k).integers(-7, 8, (m, k)).astype(
+        np.float32)
+    ones = torch.ones(n)
+    yi = ref.ternary_matmul_3pass(torch.from_numpy(xi), o_packed, ones)
+    exact = xi.astype(np.float64) @ ref.unpack_ternary(
+        o_packed, torch.float64).numpy()[:k]
+    assert np.array_equal(yi.numpy(), exact.astype(np.float32))
+    want_i = np.asarray(ref_ops.ternary_matmul_op(
+        jnp.asarray(xi), t_packed, jnp.ones(n, jnp.float32)))
+    assert np.array_equal(yi.numpy(), want_i)
 
 
 @pytest.mark.parametrize("m,n,want", [
@@ -280,6 +359,7 @@ def test_tensor_core_library_is_registered():
     assert lib.path().parent == cuda_lib.BUILD_DIR
     text = src.read_text()
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    assert "split3" in text             # fp32 x as three bf16 passes
     assert f'extern "C" int {lib.entry}(' in text
     assert set(kernel.launch_counts) == {"ternary_matmul",
                                          "ternary_matmul_tc"}
