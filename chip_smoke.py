@@ -8,14 +8,18 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
 2. Every kernel against its plain PyTorch version on the card, on the same
    inputs.  The TAP kernels: digits and every per-block counter row equal
    (tolerance: none, integer results must match exactly, max_abs_err 0),
-   over the program matrix below and the programs of a small K-tiled MAC.
+   over the program matrix below and the programs of a small K-tiled MAC;
+   the schedule kernel's unrolled and general slot bodies at 2^20 rows.
    The packed-ternary matmul, both kernels (M >= 16 on the tensor cores,
    fp32 as three bf16 passes, fewer rows on the CUDA cores; each call must
    launch the one ``kernel_for`` names and not the other): fp32 within
    1e-4 and bf16 within 5e-2 (allclose, atol = rtol), on the reference's
    test shapes and odd ones, exact on integer activations, and
    bit-identical to the plain version on integer activations in both
-   dtypes on the tensor cores, integers up to 2^19 among them.
+   dtypes on the tensor cores, integers up to 2^19 among them; and both
+   kernels, routed or not, at qwen2-72b's w1 (K = 8192, N = 29568, M = 1
+   and 16), in both dtypes within the same tolerances and bit-identical on
+   integer activations.
 3. The main paths at full size, each with every kernel's launch count set
    to 0 just before it and read just after; each fails if a kernel of the
    path was not launched.
@@ -40,7 +44,10 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
    matmul).  Both matmul kernels are timed on the same inputs at every
    shape (M = 1, 4, 8, 16, 2048; the routed one and the other, through its
    own launcher), and the tensor-core kernel at each of its M tiles on the
-   MLP's products in both dtypes.  The matmul rows also give the device's
+   MLP's products in both dtypes.  The schedule kernel is timed through
+   its wrapper and through ``tap_ripple_add`` (which builds the schedule
+   at each call, as callers do) beside the program kernel, counters off,
+   on the same schedule.  The matmul and schedule-kernel rows also give the device's
    time alone: a CUDA graph of 20 calls, replayed.
 
 Prints the kernels line (one JSON object) and the card's ``nvidia-smi``
@@ -249,20 +256,30 @@ def phase_kernels_vs_plain(dev, log) -> dict[str, int]:
                         f"max_abs_err={e}")
                     check(e == 0, f"tap_run_program {name} rows={rows} "
                                   f"{kv} stats={stats} disagrees")
+    # the schedule kernel's two slot bodies: unrolled (the non-blocked
+    # ripple add) and general (the blocked schedules, four keys a step)
     lut_b = build_lut_blocked(tt.full_adder(3))
     lut_n = build_lut_nonblocked(tt.full_adder(3))
     cases = [("blocked_full_adder", ref.schedule_from_lut(lut_b, (0, 1, 2)),
               3),
-             ("ripple_add_w3", ref.ripple_add_schedule(lut_n, 3, 6), 7)]
+             ("ripple_add_w3", ref.ripple_add_schedule(lut_n, 3, 6), 7),
+             ("ripple_add_w3_blocked", ref.ripple_add_schedule(lut_b, 3, 6),
+              7)]
+    bodies = set()
     for name, sched, cols in cases:
         arr = torch.from_numpy(raw_digits(FULL_ROWS, cols, 3, rng)).to(dev)
         out = kernel.tap_apply_schedule(arr, sched)
         want = ref.apply_schedule(arr, sched)
         e = int((out.int() - want.int()).abs().max())
         err["tap_apply_schedule"] = max(err["tap_apply_schedule"], e)
+        body = ("general" if kernel.schedule_plan(sched, cols, dev).kind == 0
+                else "unrolled")
+        bodies.add(body)
         log(f"  tap_apply_schedule {name} rows={FULL_ROWS} steps="
-            f"{len(sched)} max_abs_err={e}")
+            f"{len(sched)} slot body {body} max_abs_err={e}")
         check(e == 0, f"tap_apply_schedule {name} disagrees")
+    check(bodies == {"general", "unrolled"},
+          f"tap_apply_schedule ran the slot bodies {bodies}, not both")
     torch.cuda.synchronize()
     return err
 
@@ -284,6 +301,20 @@ def packed_weights(k: int, n: int, rng, dev):
     from repro_torch.kernels.ternary_matmul import quantize_and_pack
     w = torch.from_numpy(rng.normal(0, 0.05, (k, n)).astype(np.float32))
     return quantize_and_pack(w.to(dev))
+
+
+def seeded_packed(k: int, n: int, gen, dev, chunk: int = 1024):
+    """Uniform trits packed on the card, ``chunk`` rows of K at a time, and
+    scales in [0.01, 0.05), from the torch generator ``gen``."""
+    import torch
+    from repro_torch.kernels.ternary_matmul.ref import PACK, pack_ternary
+    packed = torch.empty((k // PACK, n), dtype=torch.int32, device=dev)
+    for lo in range(0, k, chunk):
+        trits = torch.randint(-1, 2, (min(chunk, k - lo), n), generator=gen,
+                              device=dev, dtype=torch.int8)
+        packed[lo // PACK:(lo + len(trits)) // PACK] = pack_ternary(trits)
+    scale = torch.rand(n, generator=gen, device=dev) * 0.04 + 0.01
+    return packed, scale
 
 
 def routed_matmul(tk, x, packed, scale):
@@ -367,6 +398,42 @@ def phase_matmul_vs_plain(dev, log) -> dict[str, dict[str, float]]:
                 f"max_abs_err={e}, bit-identical {torch.equal(y, want)}")
             check(kname == "ternary_matmul_tc" and torch.equal(y, want),
                   f"{kname} {name} integers {m}x{k}x{n} not bit-identical")
+    # qwen2-72b's w1 (K = 8192), the widest K: both kernels at every shape
+    # phase 4 times, routed or not, within tolerance on normal x and bit
+    # for bit on integers |x| <= 7 (sums below 2^24: exact)
+    k, n = QWEN2_72B
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    packed, scale = seeded_packed(k, n, gen, dev)
+    launchers = {"ternary_matmul": tk._launch_cuda_cores,
+                 "ternary_matmul_tc": tk._launch_tensor_cores}
+    for m in (1, 16):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            tol = MATMUL_TOL[name]
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            xi = torch.randint(-AP_MAX_ABS, AP_MAX_ABS + 1, (m, k),
+                               generator=gen, device=dev).to(dtype)
+            want = ternary_matmul_ref(x, packed, scale)
+            want_i = ternary_matmul_ref(xi, packed, scale)
+            for kname, launch in launchers.items():
+                y = launch(x, packed, scale)
+                e, ok = allclose_err(y, want, tol)
+                worst = float(((y.float() - want.float()).abs() / (
+                    tol + tol * want.float().abs())).max())
+                yi = launch(xi, packed, scale)
+                ei = float((yi.float() - want_i.float()).abs().max())
+                err[kname][name] = max(err[kname][name], e)
+                err[kname]["integer"] = max(err[kname]["integer"], ei)
+                log(f"  {kname} qwen2-72b w1 M={m} K={k} N={n} {name} "
+                    f"max_abs_err={e:.3e}, largest |y - want| / ({tol} + "
+                    f"{tol}·|want|) = {worst:.3f} (limit 1); integers "
+                    f"|x| <= {AP_MAX_ABS} max_abs_err={ei}, bit-identical "
+                    f"{torch.equal(yi, want_i)}")
+                check(ok, f"{kname} qwen2-72b M={m} {name} disagrees")
+                check(torch.equal(yi, want_i),
+                      f"{kname} qwen2-72b M={m} {name} integers not "
+                      f"bit-identical")
     torch.cuda.synchronize()
     return err
 
@@ -814,7 +881,7 @@ def phase_times(dev, card: str, log) -> list[dict]:
     from repro_torch.apc.exec import BLOCK_ROWS, device_schedule
     from repro_torch.core import build_lut_nonblocked
     from repro_torch.core import truth_tables as tt
-    from repro_torch.kernels.tap_pass import kernel, ref
+    from repro_torch.kernels.tap_pass import kernel, ref, tap_ripple_add
     from repro_torch.kernels.tap_pass.ops import _pad_rows
 
     rng = np.random.default_rng(SEED + 2)
@@ -856,19 +923,41 @@ def phase_times(dev, card: str, log) -> list[dict]:
                 f"{b['ops_ms']:.6f} ms, serial steps {b['serial_ms']:.6f} "
                 f"ms; one op per row {b['per_row_ops_bound_ms']:.6f} ms), "
                 f"card {card}")
+    # the schedule kernel on the width-3 ripple add, through its wrapper;
+    # beside it the program kernel, counters off, on the same schedule
+    # lowered to a program (the yardstick of a dedicated kernel)
     lut = build_lut_nonblocked(tt.full_adder(3))
     sched = ref.ripple_add_schedule(lut, 3, 6)
     compiled = apc.lower._compile_steps(tuple(
         apc.Step(keys=k, compare_cols=c, write_cols=wc, write_vals=wv)
         for k, c, wc, wv in sched))
+    p_sched, _, _ = device_schedule(compiled, "gather", dev)
     for rows in TIMING_ROWS:
         _, _, arr = named_operands("add", 3, 3, rows, rng)
         arr = torch.from_numpy(arr).to(dev)
-        ms = event_ms(lambda: kernel.tap_apply_schedule(arr, sched),
-                      reps=5, inner=20)
+        block_rows = min(BLOCK_ROWS, rows)
+
+        def run_kernel():
+            return kernel.tap_apply_schedule(arr, sched)
+
+        def run_program():
+            return kernel.tap_run_program(arr, *p_sched, rows,
+                                          block_rows=block_rows)[0]
+
+        def run_entry():                 # builds the schedule as callers do
+            return tap_ripple_add(arr, lut, 3, 6)
+        check(torch.equal(run_kernel(), run_program()),
+              f"tap_apply_schedule rows={rows}: not the program kernel's "
+              f"digits")
+        check(torch.equal(run_entry(), run_program()),
+              f"tap_ripple_add rows={rows}: not the program kernel's digits")
+        ms = event_ms(run_kernel, reps=5, inner=20)
+        entry_ms = event_ms(run_entry, reps=5, inner=20)
+        device_ms = graph_ms(run_kernel)
+        program_ms = event_ms(run_program, reps=5, inner=20)
+        program_device_ms = graph_ms(run_program)
         plain_ms = event_ms(lambda: ref.apply_schedule(arr, sched), reps=3,
                             inner=1)
-        p_sched, _, _ = device_schedule(compiled, "gather", dev)
         _, counts = ref.run_program_plain(arr, *p_sched, rows,
                                           block_rows=rows,
                                           collect_stats=True)
@@ -882,14 +971,21 @@ def phase_times(dev, card: str, log) -> list[dict]:
                                         ops / PEAK_INT32_OPS_PER_S * 1e3)
         row = {"kernel": "tap_apply_schedule", "program": "ripple_add3x3",
                "steps": len(sched), "rows": rows, "cols": 7, "ms": ms,
-               "plain_ms": plain_ms, **b, "card": card}
+               "device_ms": device_ms, "entry_ms": entry_ms,
+               "plain_ms": plain_ms,
+               "program_kernel_ms": program_ms,
+               "program_kernel_device_ms": program_device_ms, **b,
+               "card": card}
         rows_out.append(row)
         log(f"  time tap_apply_schedule ripple_add3x3 rows={rows} kernel "
-            f"{ms:.6f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b['bound_ms']:.6f} ms ({b['bound_by']}: bytes "
-            f"{b['bytes_ms']:.6f} ms, int ops / 32 rows {b['ops_ms']:.6f} "
-            f"ms, serial steps {b['serial_ms']:.6f} ms; one op per row "
-            f"{b['per_row_ops_bound_ms']:.6f} ms), card {card}")
+            f"{ms:.6f} ms (graph {device_ms:.6f}; through tap_ripple_add "
+            f"{entry_ms:.6f}), program kernel counters "
+            f"off {program_ms:.6f} ms (graph {program_device_ms:.6f}), "
+            f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.6f} ms "
+            f"({b['bound_by']}: bytes {b['bytes_ms']:.6f} ms, int ops / 32 "
+            f"rows {b['ops_ms']:.6f} ms, serial steps {b['serial_ms']:.6f} "
+            f"ms; one op per row {b['per_row_ops_bound_ms']:.6f} ms), card "
+            f"{card}")
     return rows_out
 
 
@@ -917,16 +1013,7 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
         if (k, n) not in weights:
             weights.clear()              # free the previous model's
             torch.cuda.empty_cache()
-            packed = torch.empty((k // PACK, n), dtype=torch.int32,
-                                 device=dev)
-            for lo in range(0, k, chunk):
-                trits = torch.randint(-1, 2, (min(chunk, k - lo), n),
-                                      generator=gen, device=dev,
-                                      dtype=torch.int8)
-                packed[lo // PACK:(lo + len(trits)) // PACK] = (
-                    pack_ternary(trits))
-            scale = torch.rand(n, generator=gen, device=dev) * 0.04 + 0.01
-            weights[(k, n)] = (packed, scale, {})
+            weights[(k, n)] = (*seeded_packed(k, n, gen, dev, chunk), {})
         packed, scale, dense = weights[(k, n)]
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]

@@ -23,7 +23,8 @@
 //   reads are 128 consecutive bytes; a column holds an odd number of words,
 //   so the byte copies in and out hit distinct banks.  Compares, the
 //   mismatch count, the tag, the histogram and the writes work on the four
-//   bytes at once (tap_common.cuh's byte-lane helpers).
+//   bytes at once (tap_common.cuh's byte-lane helpers and slot bodies,
+//   which the schedule kernel, tap_schedule.cu, shares).
 // - Slot records.  The host encodes the schedule once per program into one
 //   fixed-size record per slot (kernels/tap_pass/records.py).  A column
 //   outside [0, cols) is encoded as the dummy column `cols`, an extra tile
@@ -64,16 +65,17 @@
 
 namespace {
 
-using tap::add_flags;
-using tap::at_least80;
-using tap::bytes_of80;
-using tap::mismatch80;
-using tap::nonzero80;
-using tap::zero80;
+using tap::copy_rows;
+using tap::Counts;
+using tap::cp_async16;
+using tap::cp_async_commit;
+using tap::cp_async_wait_all;
+using tap::general_tag;
+using tap::general_writes;
+using tap::LaneCounts;
 
 constexpr int kMaxThreads = 256;
 constexpr int kMaxPack = 32;
-constexpr int kSatEvery = 120;    // general kernel: saturate mm this often
 
 struct Args {
   const int8_t* in;
@@ -91,196 +93,6 @@ struct Args {
   int32_t* counts;
   int cta_rows;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Per-thread counters: sets, resets and ge[b] = #(row, key) with at least b
-// mismatches, b = 1..7.
-struct Counts {
-  int sets = 0;
-  int resets = 0;
-  int ge[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-};
-
-// The unrolled kernels' counters within one chunk of records, one count
-// per row in each byte, added into Counts at the end of the chunk, before a
-// byte can reach 256 (a slot adds at most 3 sets and 4 mismatches).  With
-// mm <= 4 mismatches, #(mm >= b) for b = 1..4 follows from four sums:
-// any = #(mm >= 1), bit1 = #(mm in {2, 3}), bit2 = #(mm == 4) and
-// sum = the sum of mm = the sum of the four thresholds.
-struct LaneCounts {
-  uint32_t sets = 0, resets = 0;
-  uint32_t any = 0, bit1 = 0, bit2 = 0, sum = 0;
-
-  __device__ __forceinline__ void flush(Counts& n) {
-    using tap::byte_sum;
-    const int t1 = byte_sum(any), t4 = byte_sum(bit2);
-    const int t2 = byte_sum(bit1) + t4;
-    n.sets += byte_sum(sets);
-    n.resets += byte_sum(resets);
-    n.ge[1] += t1;
-    n.ge[2] += t2;
-    n.ge[3] += byte_sum(sum) - t1 - t2 - t4;
-    n.ge[4] += t4;
-    *this = LaneCounts();
-  }
-};
-
-template <bool kStats>
-__device__ __forceinline__ void write_cell(uint32_t* cell, uint32_t old,
-                                           uint32_t val4, uint32_t tag80,
-                                           uint32_t tag_bytes, Counts& n) {
-  if (kStats) {
-    const uint32_t changed = nonzero80(old ^ val4) & tag80;
-    n.sets += __popc(changed);
-    n.resets += __popc(changed & nonzero80(~old));
-  }
-  *cell = (old & ~tag_bytes) | (val4 & tag_bytes);
-}
-
-constexpr int kWideWords = 16;   // an unrolled kernel's record
-
-// One slot of an unrolled kernel: the wide record r (kCF compare columns,
-// one key, kWF distinct write columns), the thread's column-0 word at
-// `tile`, `ts` words per column.  Every cell is loaded before any is
-// written, and no branch depends on the slot: padded cells go to the dummy
-// column, and the record's last word carries the no-key and histogram
-// flags as byte masks.
-template <int kCF, int kWF, bool kStats>
-__device__ __forceinline__ void fast_slot(const uint32_t (&r)[kWideWords],
-                                          uint32_t* tile, int ts,
-                                          uint32_t valid80, LaneCounts& n) {
-  constexpr int kKeys = 1 + kCF;
-  constexpr int kWCols = kKeys + kCF;
-  constexpr int kWVals = kWCols + kWF;
-  static_assert(kWVals + kWF <= kWideWords, "a 16-word record");
-  uint32_t v[kCF], old[kWF];
-#pragma unroll
-  for (int j = 0; j < kCF; ++j) v[j] = tile[r[1 + j] * ts];
-#pragma unroll
-  for (int j = 0; j < kWF; ++j) old[j] = tile[r[kWCols + j] * ts];
-  uint32_t mm = 0;                      // mismatches per row, at most kCF
-#pragma unroll
-  for (int j = 0; j < kCF; ++j)
-    mm = add_flags(mm, mismatch80(v[j], r[kKeys + j]));
-  const uint32_t match80 = zero80(mm);
-  // the last word: bit 7 of each byte set for a slot with no key (every
-  // row tagged), bit 6 for a histogram slot
-  const uint32_t flags = r[kWideWords - 1];
-  const uint32_t tag80 = (match80 | flags) & valid80;
-  if (kStats) {
-    const uint32_t hist80 = (flags << 1) & valid80;
-    const uint32_t hist = bytes_of80(hist80);
-    n.any = add_flags(n.any, hist80 & ~match80);
-    n.bit1 += __umulhi(mm & 0x02020202u & hist, 1u << 31);
-    if (kCF > 3) n.bit2 += __umulhi(mm & 0x04040404u & hist, 1u << 30);
-    n.sum += mm & hist;
-  }
-  const uint32_t tag_bytes = bytes_of80(tag80);
-#pragma unroll
-  for (int j = 0; j < kWF; ++j) {
-    const uint32_t val4 = r[kWVals + j];
-    if (kStats) {
-      const uint32_t changed = nonzero80(old[j] ^ val4) & tag80;
-      n.sets = add_flags(n.sets, changed);
-      n.resets = add_flags(n.resets, changed & nonzero80(~old[j]));
-    }
-    tile[r[kWCols + j] * ts] = (old[j] & ~tag_bytes) | (val4 & tag_bytes);
-  }
-}
-
-// The tag of one slot of the general kernel (any K, C), with its
-// histogram thresholds.
-template <bool kStats>
-__device__ uint32_t general_tag(const uint32_t* rec, const uint32_t* tile,
-                                int ts, int C, uint32_t valid80,
-                                Counts& n) {
-  const int nk = static_cast<int>(rec[0] & 0xffffu);
-  if (nk == 0) return valid80;           // no key: an unconditional write
-  const bool hist = kStats && (rec[0] >> 16 & 1u);
-  const uint16_t* cc = reinterpret_cast<const uint16_t*>(rec + 1);
-  const uint8_t* keys =
-      reinterpret_cast<const uint8_t*>(rec + 1 + (C + 1) / 2);
-  uint32_t tag = 0;
-  for (int k = 0; k < nk; ++k) {
-    uint32_t mm = 0;
-    for (int c = 0; c < C; ++c) {
-      const uint32_t v = tile[cc[c] * ts];
-      mm += mismatch80(v, keys[k * C + c] * tap::kOnes) >> 7;
-      if (c % kSatEvery == kSatEvery - 1) {   // keep every byte below 0x80
-        const uint32_t big = bytes_of80(at_least80(mm, 8));
-        mm = (mm & ~big) | (0x07070707u & big);
-      }
-    }
-    tag |= zero80(mm);
-    if (hist) {
-#pragma unroll
-      for (int b = 1; b < 8; ++b)
-        n.ge[b] += __popc(at_least80(mm, b) & valid80);
-    } else if ((tag & valid80) == valid80) {
-      break;                             // no histogram: every row tagged
-    }
-  }
-  return tag & valid80;
-}
-
-template <bool kStats>
-__device__ void general_writes(const uint32_t* rec, uint32_t* tile, int ts,
-                               int K, int C, int W, uint32_t tag80,
-                               Counts& n) {
-  const int wc = 1 + (C + 1) / 2 + (K * C + 3) / 4;
-  const uint16_t* cols = reinterpret_cast<const uint16_t*>(rec + wc);
-  const uint8_t* vals =
-      reinterpret_cast<const uint8_t*>(rec + wc + (W + 1) / 2);
-  const uint32_t tag_bytes = bytes_of80(tag80);
-  for (int w = 0; w < W; ++w) {           // in order: duplicates serial
-    uint32_t* cell = tile + cols[w] * ts;
-    write_cell<kStats>(cell, *cell, vals[w] * tap::kOnes, tag80, tag_bytes,
-                       n);
-  }
-}
-
-// Copy n_rows rows of `cols` bytes (row-major in device memory) into the
-// column-major tile of `rows` bytes per column, and back.  Coalesced on the
-// device side; the row and column of each byte advance by a fixed step.
-__device__ __forceinline__ void copy_rows(uint8_t* tile, int8_t* dev,
-                                          int n_rows, int cols, int rows,
-                                          bool to_tile) {
-  const int n = n_rows * cols;
-  int r = threadIdx.x / cols;
-  int c = threadIdx.x % cols;
-  const int dr = blockDim.x / cols;
-  const int dc = blockDim.x % cols;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (to_tile)
-      tile[c * rows + r] = static_cast<uint8_t>(dev[i]);
-    else
-      dev[i] = static_cast<int8_t>(tile[c * rows + r]);
-    c += dc;
-    r += dr;
-    if (c >= cols) {
-      c -= cols;
-      ++r;
-    }
-  }
-}
 
 // kCF > 0: an unrolled kernel (one key, kCF compare columns, kWF distinct
 // write columns, pack 1); kCF == 0: the general kernel.
@@ -338,24 +150,8 @@ __global__ void __launch_bounds__(kMaxThreads) tap_program_kernel(Args a) {
     const uint32_t* rb = rec_buf + (ch & 1) * chunk_words;
     const int n_here = min(a.chunk_slots, a.n_slots - ch * a.chunk_slots);
     if constexpr (kCF > 0) {
-      const uint4* r4 = reinterpret_cast<const uint4*>(rb);
-      uint4 q[4] = {r4[0], r4[1], r4[2], r4[3]};
-#pragma unroll 2
-      for (int s = 0; s < n_here; ++s) {
-        uint32_t r[kWideWords];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          r[4 * i] = q[i].x;
-          r[4 * i + 1] = q[i].y;
-          r[4 * i + 2] = q[i].z;
-          r[4 * i + 3] = q[i].w;
-        }
-        // the next record, ahead of use (past the chunk's last one, a
-        // record that is not used)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) q[i] = r4[4 * s + 4 + i];
-        fast_slot<kCF, kWF, kStats>(r, my, ts, valid80, lanes);
-      }
+      tap::fast_slots<kCF, kWF, kStats>(rb, n_here, my, ts, valid80,
+                                        lanes);
       if (kStats) lanes.flush(n);
     } else {
       for (int g = 0; g < n_here; g += a.pack) {
@@ -437,7 +233,7 @@ extern "C" int tap_run_program_launch(
     int n_hist_keys, void* counts, int cta_rows, int threads, void* stream) {
   if (cta_rows % 4 || cta_rows > 4 * threads || threads > kMaxThreads ||
       rec_words % 4 || pack < 1 || pack > kMaxPack || chunk_slots % pack ||
-      (kind != 0 && (pack != 1 || rec_words != kWideWords ||
+      (kind != 0 && (pack != 1 || rec_words != tap::kWideWords ||
                      chunk_slots * 4 > 255)))     // LaneCounts' bytes
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const int8_t*>(in), static_cast<int8_t*>(out),

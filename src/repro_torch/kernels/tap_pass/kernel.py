@@ -11,8 +11,10 @@ Two kernels, each behind one wrapper:
   unrolled instantiations for the programs of the main paths.
 - :func:`tap_apply_schedule` applies a short static schedule (a tuple of
   ``(keys, compare_cols, write_cols, write_vals)`` steps), no counters and
-  no row mask.  CUDA source ``csrc/tap_schedule.cu``; it stages the whole
-  schedule in shared memory.
+  no row mask.  CUDA source ``csrc/tap_schedule.cu``: the program kernel's
+  four-rows-per-thread slots without counters, the schedule encoded once
+  into slot records (:func:`schedule_plan`, cached per schedule object,
+  column count and device) and staged whole into shared memory.
 
 A wrapper given a tensor on the CPU runs the plain version from
 :mod:`.ref`; given a CUDA tensor it launches its kernel, or raises.
@@ -28,13 +30,15 @@ import dataclasses
 import functools
 import weakref
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import cuda_lib
 from ..cuda_lib import I32 as _I, I64 as _LL, VP as _VP
-from .records import Records, build_records
+from .records import (Layout, Records, build_records, choose_layout,
+                      encode_records)
 from .ref import HIST_BINS, Step, apply_schedule, run_program_plain
 
 BLOCK_ROWS = 1024
@@ -43,7 +47,8 @@ MAX_PACK = 32                    # slot tags of a group live in one uint32
 MAX_SMEM_BYTES = 232448          # dynamic shared memory a Hopper CTA may use
 MAX_THREADS = 256
 MIN_CTA_ROWS = 16                # program kernel: rows of the smallest CTA
-MAX_CTA_ROWS = 4 * MAX_THREADS   # program kernel: four rows per thread
+MAX_CTA_ROWS = 4 * MAX_THREADS   # four rows per thread
+MAX_SCHEDULE_PLANS = 64          # schedules whose records are kept
 
 launch_counts = {"tap_run_program": 0, "tap_apply_schedule": 0}
 
@@ -57,21 +62,7 @@ cuda_lib.register(cuda_lib.CudaLibrary(
 cuda_lib.register(cuda_lib.CudaLibrary(
     "tap_schedule", _CSRC, "tap_schedule.cu", _HEADERS,
     "tap_apply_schedule_launch",
-    (_VP, _VP, _LL, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-     _VP)))
-
-
-def _threads(cols: int, rows_per_cta: int, extra_smem: int = 0) -> int:
-    """Threads per CTA (one per row): at most MAX_THREADS, fewer when the
-    CTA has fewer rows, halved until the row tile fits in shared memory."""
-    t = MAX_THREADS
-    while t > 32 and (t // 2 >= rows_per_cta
-                      or extra_smem + cols * t > MAX_SMEM_BYTES):
-        t //= 2
-    if extra_smem + cols * t > MAX_SMEM_BYTES:
-        raise ValueError(f"{cols} columns do not fit a {t}-row tile in "
-                         f"{MAX_SMEM_BYTES} bytes of shared memory")
-    return t
+    (_VP, _VP, _LL, _I, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP)))
 
 
 _PROGRAM_DTYPES = (torch.int32, torch.int8, torch.uint8, torch.uint8,
@@ -174,6 +165,9 @@ def _launch_program(arr, sched, n_valid, block_rows, collect_stats, pack):
     cta_rows, threads = cta_shape(cols, block_rows, n_blocks,
                                   4 * (2 * rec.chunk_slots + 1) * lay.words,
                                   _sm_count(dev.index))
+    if -(-block_rows // cta_rows) > 65535:
+        raise ValueError(f"block_rows={block_rows} needs more than 65535 "
+                         f"CTAs per block")
     launch = cuda_lib.entry("tap_program")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -194,27 +188,25 @@ def _sm_count(index: int) -> int:
 
 
 def cta_shape(cols: int, block_rows: int, n_blocks: int, record_bytes: int,
-              n_sm: int) -> tuple[int, int]:
-    """Rows and threads of a program-kernel CTA (four rows per thread).
+              n_sm: int, min_rows: int = MIN_CTA_ROWS) -> tuple[int, int]:
+    """Rows and threads of a CTA of either TAP kernel (four rows per
+    thread).
 
     The most rows (a multiple of 4, at most :data:`MAX_CTA_ROWS` and the
     block) whose column-major tile, one dummy column included, fits in
     shared memory beside the ``record_bytes`` of staged records; halved
-    while the grid gives fewer than two CTAs per SM, down to
-    :data:`MIN_CTA_ROWS`.  Threads: a whole number of warps covering the
-    rows, at least four warps, which share the copies in and out."""
+    while the grid gives fewer than two CTAs per SM, down to ``min_rows``.
+    Threads: a whole number of warps covering the rows, at least four
+    warps, which share the copies in and out."""
     # (cols + 1) columns of rows / 4 words, rounded up to an odd count
     fit = ((MAX_SMEM_BYTES - record_bytes) // (cols + 1) - 4) // 4 * 4
     rows = min(MAX_CTA_ROWS, fit, -(-block_rows // 4) * 4)
     if rows < 4:
         raise ValueError(f"{cols} columns do not fit a 4-row tile in "
                          f"{MAX_SMEM_BYTES} bytes of shared memory")
-    while (rows > MIN_CTA_ROWS
+    while (rows > min_rows
            and n_blocks * -(-block_rows // rows) < 2 * n_sm):
-        rows = max(MIN_CTA_ROWS, -(-rows // 8) * 4)
-    if -(-block_rows // rows) > 65535:
-        raise ValueError(f"block_rows={block_rows} needs more than 65535 "
-                         f"CTAs per block")
+        rows = max(min_rows, -(-rows // 8) * 4)
     return rows, max(128, -(-rows // 128) * 32)
 
 
@@ -294,36 +286,76 @@ def tap_apply_schedule(arr: torch.Tensor, schedule: tuple[Step, ...],
     return _launch_schedule(arr, schedule)
 
 
-@functools.lru_cache(maxsize=64)
-def _schedule_on(schedule: tuple[Step, ...], device: torch.device
-                 ) -> tuple[torch.Tensor, ...]:
-    return tuple(torch.from_numpy(t).to(device)
-                 for t in schedule_tensors(schedule))
+class SchedulePlan(NamedTuple):
+    """A short schedule encoded for one column count and device: its slot
+    records (pack 1) and their kernel kind and layout."""
+    records: torch.Tensor        # int32 [steps, layout.words]
+    kind: int                    # records.KIND_*
+    layout: Layout
+
+
+def schedule_shape(cols: int, rows: int, n_slots: int, rec_words: int,
+                   n_sm: int) -> tuple[int, int]:
+    """Rows and threads of a schedule-kernel CTA: :func:`cta_shape` over
+    the rows as one block, beside the whole schedule's records (and one
+    more, read ahead), halved down to 4 rows while the grid gives fewer
+    than two CTAs per SM."""
+    return cta_shape(cols, rows, 1, 4 * (n_slots + 1) * rec_words, n_sm,
+                     min_rows=4)
+
+
+# id(schedule) -> (schedule, {(cols, device): SchedulePlan}); the entry
+# holds the schedule itself, so its id is not reused while it is cached
+_plans: dict[int, tuple[tuple, dict]] = {}
+
+
+def schedule_plan(schedule: tuple[Step, ...], cols: int, device
+                  ) -> SchedulePlan:
+    """The slot records of a step tuple for a ``cols``-column array on
+    ``device``, encoded at the first call for this schedule object and
+    kept (for the last :data:`MAX_SCHEDULE_PLANS` schedules): a later call
+    with the same object hashes nothing of it.  An equal schedule that is
+    another object is encoded anew.  Raises ``ValueError`` if a step
+    touches a column at or past ``cols``."""
+    entry = _plans.get(id(schedule))
+    if entry is None or entry[0] is not schedule:
+        if len(_plans) >= MAX_SCHEDULE_PLANS:
+            _plans.pop(next(iter(_plans)))
+        entry = _plans[id(schedule)] = (schedule, {})
+    plan = entry[1].get((cols, device))
+    if plan is None:
+        if any(c >= cols for _, cc, wc, _ in schedule for c in (*cc, *wc)):
+            raise ValueError(f"schedule touches a column >= {cols}")
+        cmp_cols, keys, key_valid, wr_cols, wr_vals = \
+            schedule_tensors(schedule)
+        sched = (cmp_cols, keys, key_valid, np.zeros(len(schedule), bool),
+                 wr_cols, wr_vals)
+        kind, layout = choose_layout(sched, 1)
+        recs = torch.from_numpy(encode_records(sched, cols, layout))
+        plan = entry[1][(cols, device)] = SchedulePlan(
+            recs.to(device), kind, layout)
+    return plan
 
 
 def _launch_schedule(arr, schedule):
     _check_cuda_digits(arr, "tap_apply_schedule")
     rows, cols = arr.shape
-    if any(c >= cols for _, cc, wc, _ in schedule for c in (*cc, *wc)):
-        raise ValueError(f"schedule touches a column >= {cols}")
     dev = arr.device
-    cmp_cols, keys, key_valid, wr_cols, wr_vals = _schedule_on(schedule, dev)
-    S, K, C = keys.shape
-    W = wr_cols.shape[1]
-    sched_bytes = -(-sum(t.numel() * t.element_size() for t in (
-        cmp_cols, keys, key_valid, wr_cols, wr_vals)) // 16) * 16
+    plan = schedule_plan(schedule, cols, dev)
     arr = arr.contiguous()
     out = torch.empty_like(arr)
     if rows == 0:
         return out
-    threads = _threads(cols, rows, sched_bytes)
+    lay = plan.layout
+    cta_rows, threads = schedule_shape(cols, rows, plan.records.shape[0],
+                                       lay.words, _sm_count(dev.index))
     launch = cuda_lib.entry("tap_schedule")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
-            arr.data_ptr(), out.data_ptr(), rows, cols, cmp_cols.data_ptr(),
-            keys.data_ptr(), key_valid.data_ptr(), wr_cols.data_ptr(),
-            wr_vals.data_ptr(), S, K, C, W, sched_bytes, threads, stream)
+            arr.data_ptr(), out.data_ptr(), rows, cols,
+            plan.records.data_ptr(), plan.records.shape[0], lay.words,
+            plan.kind, lay.K, lay.C, lay.W, cta_rows, threads, stream)
     cuda_lib.check_status(err, "tap_apply_schedule")
     launch_counts["tap_apply_schedule"] += 1
     return out

@@ -1,18 +1,31 @@
 """Public wrappers around the fused TAP LUT kernels."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ...core.lut import LUT
 from ...device import as_digits
-from .kernel import BLOCK_ROWS, tap_apply_schedule, tap_run_program
-from .ref import ripple_add_schedule, schedule_from_lut
+from .kernel import (BLOCK_ROWS, MAX_SCHEDULE_PLANS, tap_apply_schedule,
+                     tap_run_program)
+from . import ref
 
 # Schedules longer than this run through the program kernel
 # (tap_run_program), which reads its schedule from device memory; short
 # ones go to the schedule kernel, which stages the whole schedule in shared
 # memory.
 UNROLL_STEP_LIMIT = 64
+
+# Each schedule is built once per (LUT, placement) and the same tuple object
+# returned after: LUTs hash by identity (their builders intern them), and
+# the schedule kernel keeps its encoding per schedule object
+# (kernel.schedule_plan), so a repeated call does no host work on the
+# schedule.
+_lut_schedule = functools.lru_cache(maxsize=MAX_SCHEDULE_PLANS)(
+    ref.schedule_from_lut)
+_ripple_schedule = functools.lru_cache(maxsize=MAX_SCHEDULE_PLANS)(
+    ref.ripple_add_schedule)
 
 
 def _pad_rows(arr: torch.Tensor, block_rows: int
@@ -54,7 +67,7 @@ def tap_apply_lut(arr, lut: LUT, col_map: tuple[int, ...],
                   kernel_variant: str | None = None,
                   device=None) -> torch.Tensor:
     """One LUT application (single digit position) on the kernel path."""
-    sched = schedule_from_lut(lut, col_map)
+    sched = _lut_schedule(lut, tuple(col_map))
     return _run_schedule(as_digits(arr, device), sched, block_rows,
                          kernel_variant)
 
@@ -71,7 +84,7 @@ def tap_ripple_add(arr, lut: LUT, width: int, carry_col: int,
     launch reads and writes each row once.  Wide adds route through the
     program kernel (see ``UNROLL_STEP_LIMIT``).
     """
-    sched = ripple_add_schedule(lut, width, carry_col, a_base, b_base)
+    sched = _ripple_schedule(lut, width, carry_col, a_base, b_base)
     return _run_schedule(as_digits(arr, device), sched, block_rows,
                          kernel_variant)
 

@@ -24,7 +24,14 @@
 // an infinite x keeps mid = lo = 0.  Three `mma` per decoded B fragment add
 // the three exact products into one fp32 accumulator: the fp32 product
 // without TF32's 10-bit x, within 1e-4, and bit for bit on integers whose
-// sums stay below 2^24.  The sum is multiplied by scale[n] in fp32 and
+// sums stay below 2^24.  The tensor cores' fp32 sums do not round to
+// nearest: each `mma` adds its products into the accumulator with the
+// low bits cut off, so the error grows with the accumulator's magnitude
+// and the number of adds: summed over all of K in one accumulator, fp32 x
+// missed 1e-4 + 1e-4·|want| at K = 8192 on an H100 (qwen2-72b's w1 at
+// M = 16: 1.5e-4).  So fp32 x sums each chunk of kPromoteK of K from zero
+// on the tensor cores and adds that into a separate fp32 total with
+// ordinary, rounded FADDs.  The sum is multiplied by scale[n] in fp32 and
 // rounded once, to nearest, to y's type.
 //
 // Bound.  Operations: 2 * M * K * N at the bf16 tensor-core rate (989
@@ -78,6 +85,7 @@
 namespace {
 
 constexpr int kPack = 16;                      // trits per int32 word
+constexpr int kPromoteK = 512;                 // fp32: K per fresh sum
 constexpr int kBN = 128;                       // columns per CTA
 constexpr uint32_t kZeroWord = 0x55555555u;    // sixteen ternary zeros
 
@@ -341,13 +349,27 @@ __global__ void __launch_bounds__(
     }
   };
 
-  float acc[kMI][kNI][4];
+  // fp32 x: `acc` holds one chunk of kPromoteK of K, then is added into
+  // `total` by ordinary FADDs and starts again from zero (see Exactness)
+  float acc[kMI][kNI][4], total[kMI][kNI][4];
 #pragma unroll
   for (int i = 0; i < kMI; ++i)
 #pragma unroll
     for (int j = 0; j < kNI; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = total[i][j][q] = 0.f;
+  const auto promote = [&]() {
+#pragma unroll
+    for (int i = 0; i < kMI; ++i)
+#pragma unroll
+      for (int j = 0; j < kNI; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          total[i][j][q] += acc[i][j][q];
+          acc[i][j][q] = 0.f;
+        }
+  };
+  constexpr int kPromoteSteps = kPromoteK > BK ? kPromoteK / BK : 1;
 
   const int n_steps = (K16 + kKWords - 1) / kKWords;
 #pragma unroll
@@ -400,6 +422,9 @@ __global__ void __launch_bounds__(
         }
       }
     }
+    if constexpr (kFp32) {
+      if ((kt + 1) % kPromoteSteps == 0 || kt + 1 == n_steps) promote();
+    }
   }
   cp_async_wait<0>();
 
@@ -417,8 +442,8 @@ __global__ void __launch_bounds__(
         const long long m = m0 + wm * WM + i * 16 + g + 8 * h;
         if (m >= M || n >= N) continue;
         auto* out = y + m * N + n;
-        const float v0 = acc[i][j][2 * h] * s0;
-        const float v1 = acc[i][j][2 * h + 1] * s1;
+        const float v0 = (kFp32 ? total : acc)[i][j][2 * h] * s0;
+        const float v1 = (kFp32 ? total : acc)[i][j][2 * h + 1] * s1;
         if constexpr (kFp32) {
           if (n_even) {
             *reinterpret_cast<float2*>(out) = make_float2(v0, v1);

@@ -55,6 +55,61 @@ def test_schedule_kernel_matches_plain(dev, blk):
                        ref.apply_schedule(arr, sched))
 
 
+def _any_int8(rng, n, radix=3):
+    """n int8 values: mostly -1..radix, the rest anywhere in int8."""
+    return tuple(int(v) for v in np.where(
+        rng.random(n) < 0.7, rng.integers(-1, radix + 1, n),
+        rng.integers(-128, 128, n)))
+
+
+def _random_steps(rng, n_steps, K, C, W, cols, duplicate_writes):
+    """A step tuple whose first step has K keys over C compare columns and
+    W write columns; the others fewer (-1 padding in the dense form), some
+    with no key (unconditional) or keys over no column (match every row).
+    Compare columns may repeat; write columns repeat only with
+    ``duplicate_writes``."""
+    steps = []
+    for s in range(n_steps):
+        nc, nk, nw = ((C, K, W) if s == 0 else
+                      (rng.integers(0, C + 1), rng.integers(0, K + 1),
+                       rng.integers(1, W + 1)))
+        cc = tuple(int(c) for c in rng.integers(0, cols, nc))
+        keys = tuple(_any_int8(rng, nc) for _ in range(nk))
+        if duplicate_writes and nw > 1:
+            wc = rng.integers(0, cols, nw)
+            wc[1] = wc[0]
+        else:
+            wc = rng.choice(cols, nw, replace=False)
+        steps.append((keys, cc, tuple(int(c) for c in wc),
+                      _any_int8(rng, nw)))
+    return tuple(steps)
+
+
+@pytest.mark.parametrize("rows", [4096, 1000, 13])
+@pytest.mark.parametrize("K,C,W,dup,kind", [
+    (1, 3, 3, False, 1),            # the unrolled slots
+    (1, 4, 3, False, 2),
+    (0, 2, 2, False, 1),            # no key anywhere: every row tagged
+    (2, 3, 3, False, 0),            # the general slot
+    (4, 6, 4, False, 0),
+    (4, 6, 4, True, 0),
+    (1, 3, 3, True, 0)])            # duplicate writes: the general slot
+def test_schedule_kernel_random_schedules(dev, K, C, W, dup, kind, rows):
+    """Random short schedules with any int8 keys and values, on digits
+    -1..radix, rows not a multiple of 4 nor of a CTA: bit-identical to
+    the plain version, one launch each, the slot kind ``choose_layout``
+    gives."""
+    rng = np.random.default_rng(K * 1000 + C * 100 + W * 10 + dup + rows)
+    cols = 9
+    sched = _random_steps(rng, 40, K, C, W, cols, dup)
+    assert kernel.schedule_plan(sched, cols, dev).kind == kind
+    arr = _digits(rows, cols, 3, rows + K).to(dev)
+    before = kernel.launch_counts["tap_apply_schedule"]
+    out = kernel.tap_apply_schedule(arr, sched, block_rows=rows)
+    assert kernel.launch_counts["tap_apply_schedule"] == before + 1
+    assert torch.equal(out, ref.apply_schedule(arr, sched))
+
+
 # ---------------------------------------------------------------------------
 # The packed-ternary matmul kernel
 # ---------------------------------------------------------------------------
@@ -460,3 +515,51 @@ def test_decode_on_cuda_cores(dev, m, dtype):
         packed = pack_ternary(w_t).to(dev)
         y = _routed(tk, xi, packed, scale, "ternary_matmul")
         assert torch.equal(y, ternary_matmul_ref(xi, packed, scale))
+
+
+# ---------------------------------------------------------------------------
+# The packed matmul at qwen2-72b's MLP width (K = 8192)
+# ---------------------------------------------------------------------------
+
+QWEN2_72B = (8192, 29568)           # w1: d_model x d_ff
+
+
+@pytest.fixture(scope="module")
+def qwen2_72b_w1():
+    """Seeded trits and scales at qwen2-72b's w1, packed on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.ternary_matmul.ref import PACK, pack_ternary
+    dev = torch.device("cuda", 0)
+    k, n = QWEN2_72B
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(72)
+    packed = torch.empty((k // PACK, n), dtype=torch.int32, device=dev)
+    for lo in range(0, k, 1024):
+        packed[lo // PACK:(lo + 1024) // PACK] = pack_ternary(torch.randint(
+            -1, 2, (1024, n), generator=gen, device=dev, dtype=torch.int8))
+    scale = torch.rand(n, generator=gen, device=dev) * 0.04 + 0.01
+    return packed, scale, gen
+
+
+@pytest.mark.parametrize("kname", ["ternary_matmul", "ternary_matmul_tc"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 16])
+def test_packed_matmul_at_k8192(dev, qwen2_72b_w1, m, dtype, kname):
+    """Both kernels at qwen2-72b's w1 (K = 8192, N = 29568), routed or not:
+    within 1e-4 (fp32) / 5e-2 (bf16) of the plain version, and bit for bit
+    on integer activations |x| <= 7."""
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.kernels.ternary_matmul.ref import ternary_matmul_ref
+    packed, scale, gen = qwen2_72b_w1
+    launch = {"ternary_matmul": tk._launch_cuda_cores,
+              "ternary_matmul_tc": tk._launch_tensor_cores}[kname]
+    x = torch.randn((m, QWEN2_72B[0]), generator=gen, device=dev).to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(
+        launch(x, packed, scale).float(),
+        ternary_matmul_ref(x, packed, scale).float(), atol=tol, rtol=tol)
+    xi = torch.randint(-7, 8, (m, QWEN2_72B[0]), generator=gen,
+                       device=dev).to(dtype)
+    assert torch.equal(launch(xi, packed, scale),
+                       ternary_matmul_ref(xi, packed, scale))

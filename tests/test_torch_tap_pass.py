@@ -348,3 +348,126 @@ def test_program_kernel_cta_shape(cols, block_rows, n_blocks, want):
     memory, halved until the grid gives each of 132 SMs two CTAs; never
     more rows than a block."""
     assert kernel.cta_shape(cols, block_rows, n_blocks, 4096, 132) == want
+
+
+# ---------------------------------------------------------------------------
+# The schedule kernel's host side: slot records, their cache, launch shape
+# ---------------------------------------------------------------------------
+
+def _short_schedule(name):
+    """(schedule, cols) of the short schedules the entry points build."""
+    if name == "blocked_full_adder":
+        return ref.schedule_from_lut(build_lut_blocked(tt.full_adder(3)),
+                                     (0, 1, 2)), 3
+    build = build_lut_blocked if name.endswith("blocked") else \
+        build_lut_nonblocked
+    return ref.ripple_add_schedule(build(tt.full_adder(3)), 3, 6), 7
+
+
+@pytest.mark.parametrize("name,kind", [("ripple_add_w3", 1),
+                                       ("ripple_add_w3_blocked", 0),
+                                       ("blocked_full_adder", 0)])
+def test_schedule_plan_records_decode_to_schedule_tensors(name, kind):
+    """A short schedule takes the slot kind ``choose_layout`` gives its
+    dense tensors (the non-blocked ripple add the unrolled (1, 3, 3) slot,
+    blocked schedules the general one), and its records decode back to
+    ``schedule_tensors`` with no histogram flag."""
+    from repro_torch.kernels.tap_pass import records
+    sched, cols = _short_schedule(name)
+    plan = kernel.schedule_plan(sched, cols, torch.device("cpu"))
+    dense = kernel.schedule_tensors(sched)
+    six = (dense[0], dense[1], dense[2], np.zeros(len(sched), bool),
+           dense[3], dense[4])
+    assert records.choose_layout(six, 1) == (plan.kind, plan.layout)
+    assert plan.kind == kind
+    assert plan.records.shape == (len(sched), plan.layout.words)
+    got = records.decode_records(plan.records.numpy(), cols, plan.layout)
+    for a, b in zip(got, _padded_to(six, plan.layout)):
+        assert np.array_equal(a, b)
+
+
+def test_schedule_plan_cached_per_schedule_object():
+    """The same schedule object gets the same plan at no cost of hashing
+    it; an equal schedule that is another object, or another column count,
+    gets its own encoding; however many schedules come and go, each plan
+    decodes to its own schedule."""
+    from repro_torch.kernels.tap_pass import records
+    cpu = torch.device("cpu")
+    sched, cols = _short_schedule("ripple_add_w3")
+    plan = kernel.schedule_plan(sched, cols, cpu)
+    assert kernel.schedule_plan(sched, cols, cpu) is plan
+    assert kernel.schedule_plan(sched, cols + 1, cpu) is not plan
+    twin = tuple(list(sched))
+    assert twin == sched and twin is not sched
+    assert torch.equal(kernel.schedule_plan(twin, cols, cpu).records,
+                       plan.records)
+    rng = np.random.default_rng(11)
+    for i in range(3 * kernel.MAX_SCHEDULE_PLANS):
+        steps = tuple(
+            ((tuple(int(v) for v in rng.integers(-1, 3, 2)),), (0, 1),
+             (int(rng.integers(2, 5)),), (int(rng.integers(-1, 3)),))
+            for _ in range(int(rng.integers(1, 6))))
+        p = kernel.schedule_plan(steps, 5, cpu)
+        got = records.decode_records(p.records.numpy(), 5, p.layout)
+        want = kernel.schedule_tensors(steps)
+        assert np.array_equal(got[0][:, :2], want[0])
+        assert np.array_equal(got[1][:, :1, :2], want[1])
+        assert np.array_equal(got[4][:, :1], want[3])
+        assert np.array_equal(got[5][:, :1], want[4])
+    assert len(kernel._plans) <= kernel.MAX_SCHEDULE_PLANS
+
+
+def test_entry_points_build_each_schedule_once():
+    """``tap_ripple_add`` and ``tap_apply_lut`` build a schedule once per
+    LUT and placement and hand the same tuple to the schedule kernel after,
+    so its plan (cached per schedule object) is hit by a caller's repeated
+    calls; another LUT or placement gets a schedule of its own."""
+    cpu = torch.device("cpu")
+    lut_n = build_lut_nonblocked(tt.full_adder(3))
+    lut_b = build_lut_blocked(tt.full_adder(3))
+    arr = np.random.default_rng(12).integers(0, 3, (64, 7)).astype(np.int8)
+    for builder, call in (
+            (ops._ripple_schedule,
+             lambda: ops.tap_ripple_add(arr, lut_n, 3, 6, device="cpu")),
+            (ops._lut_schedule,
+             lambda: ops.tap_apply_lut(arr, lut_b, [4, 0, 2],
+                                       device="cpu"))):
+        call()
+        hits = builder.cache_info().hits
+        call()
+        assert builder.cache_info().hits == hits + 1
+    sched = ops._ripple_schedule(lut_n, 3, 6, 0, None)
+    assert sched == ref.ripple_add_schedule(lut_n, 3, 6)
+    assert ops._ripple_schedule(lut_n, 3, 6, 0, None) is sched
+    assert (kernel.schedule_plan(ops._ripple_schedule(lut_n, 3, 6, 0, None),
+                                 7, cpu)
+            is kernel.schedule_plan(sched, 7, cpu))
+    for lut, args in ((lut_b, (3, 6, 0, None)), (lut_n, (3, 6, 0, 4)),
+                      (lut_n, (2, 6, 0, None))):
+        assert (ops._ripple_schedule(lut, *args)
+                == ref.ripple_add_schedule(lut, *args) != sched)
+    assert (ops._lut_schedule(lut_b, (4, 0, 2))
+            == ref.schedule_from_lut(lut_b, (4, 0, 2))
+            != ops._lut_schedule(lut_b, (0, 1, 2)))
+
+
+def test_schedule_plan_refuses_columns_past_the_array():
+    """A step touching a column at or past ``cols`` raises ValueError at
+    encode time, every time (a refused schedule is not cached)."""
+    sched, _ = _short_schedule("ripple_add_w3")       # touches 7 columns
+    for _ in range(2):
+        with pytest.raises(ValueError, match="column >= 6"):
+            kernel.schedule_plan(sched, 6, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("rows,want_rows", [(4096, 8), (65536, 128),
+                                            (1 << 20, 1024), (1000, 4),
+                                            (13, 4)])
+def test_schedule_kernel_fills_the_card(rows, want_rows):
+    """The schedule kernel's CTAs: at least two per SM of 132 where the
+    rows allow (4096 rows on 512 CTAs, not 4), four rows per thread, at
+    least four warps."""
+    cta_rows, threads = kernel.schedule_shape(7, rows, 64, 16, 132)
+    assert cta_rows == want_rows
+    assert -(-rows // cta_rows) >= 2 * 132 or cta_rows == 4
+    assert threads >= 128 and 4 * threads >= cta_rows and threads % 32 == 0
