@@ -38,6 +38,26 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
       integer activations at 4 tokens, bit-identical to ``impl="ref"``,
       its cycles equal to ``ap_matmul_cycle_counts``, with its wall time
       and Table XI energy.
+   c. The array pool and the graph runtime: ``compile_named("add", 3,
+      20)`` at 2^20 rows through ``apc.run(pool=ArrayPool(4, 4096, 256))``
+      (256 blocks, 64 waves) in one program-kernel launch, digits and
+      ``APStats`` equal to ``apc.run`` without a pool, its 256 counter rows
+      equal to ``execute``'s, timed beside it, its ``pool_power`` timeline
+      equal to the Table XI energy of its ``APStats``; ``DevicePool`` over
+      ``[cuda:0]`` and ``[cuda:0, cuda:0]`` (the counter sum across shards)
+      on the same input; the AP matmul at qwen3-0.6b's ``w1`` through
+      ``pool=ArrayPool(4, 4096, 650)`` and ``runtime=Runtime(...)``,
+      bit-identical to ``impl="ref"``, its cycles ``ap_matmul_cycle_counts
+      (k_tile=64)``'s and its ``APStats`` the ``k_tile=64`` route's, with
+      the runtime's makespan report and the three routes' wall times; two
+      MAC graphs of 5000 and 3000 rows coalesced into ``block_valid``
+      launches, each slice's digits and counter rows equal to its graph
+      run alone; and add 3x20 at 65536 rows on a faulty bank (flips and a
+      dead array), recovered to the fault-free digits, with ``APStats``,
+      fault snapshot and ``faults.*`` counters equal on the card and on
+      the CPU.  The program kernel's ``block_valid`` launches are also
+      held against its plain version in step 2, on random schedules and
+      the add, valid counts from 1 to the block's rows.
 4. Times: CUDA-event medians of each kernel, its plain version and, for the
    matmul, the library product on a dense weight, beside each kernel's
    bound, at the main paths' shapes (and qwen2-72b's MLP width for the
@@ -124,6 +144,23 @@ MATMUL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 MLP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MLP_TOKENS = (1, 16, 128, 2048)
 AP_TOKENS, AP_K_TILE, AP_MAX_ABS = 4, 64, 7
+# the array pool: n_arrays, rows and columns of the add's bank and of the
+# AP matmul's (650 columns: default_k_tile(650, 9) = AP_K_TILE); the
+# coalesced MAC graphs' row counts (not multiples of the pool's rows) and K
+POOL_ADD = (4, 4096, 256)
+POOL_MAC = (4, 4096, 650)
+COALESCE_ROWS, COALESCE_K = (5000, 3000), 128
+# the faulty bank: flips only (2 in a million cells per write) and one dead
+# array, enough retries to recover; retire_after high so that sustained
+# flips do not retire the bank
+FAULT_ROWS = 65536
+FAULT_CFG = dict(flip_rate=2e-6, seed=0, dead_arrays=(1,), max_retries=8,
+                 retire_after=10_000)
+# block_valid checks of the program kernel: (K, C, W, pack) of random
+# schedules, and (block_rows, blocks) of the launches
+BLOCK_VALID_SCHEDULES = ((1, 3, 3, 1), (1, 4, 3, 1), (3, 12, 4, 1),
+                         (2, 3, 2, 4))
+BLOCK_VALID_SHAPES = ((4096, 6), (1000, 3), (13, 5))
 # ternary-matmul timings: (model, K, N, M), K x N the model's w1
 MATMUL_TIMES = tuple(("qwen3-0.6b", *QWEN3_06B, m)
                     for m in (1, 4, 8, 16, 2048)) + \
@@ -217,8 +254,27 @@ def check_programs():
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def random_schedule(rng, S: int, K: int, C: int, W: int, cols: int):
+    """Dense schedule tensors with any int8 keys and values, columns past
+    ``cols`` and -1 padding, slots with no valid key, histogram flags on
+    and off, distinct write columns."""
+    cmp_cols = rng.integers(-1, cols + 3, (S, C))
+    keys = np.where(rng.random((S, K, C)) < 0.7,
+                    rng.integers(-1, 3, (S, K, C)),
+                    rng.integers(-128, 128, (S, K, C)))
+    key_valid = rng.random((S, K)) < 0.7
+    hist_flag = rng.random(S) < 0.8
+    wr_cols = np.stack([rng.choice(cols + 3, W, replace=False) - 1
+                        for _ in range(S)])
+    wr_vals = np.where(rng.random((S, W)) < 0.7, rng.integers(-1, 3, (S, W)),
+                       rng.integers(-128, 128, (S, W)))
+    return (cmp_cols.astype(np.int32), keys.astype(np.int8), key_valid,
+            hist_flag, wr_cols.astype(np.int32), wr_vals.astype(np.int8))
+
+
 def phase_kernels_vs_plain(dev, log) -> dict[str, int]:
     import torch
+    from repro_torch.apc import compile_named as apc_compile
     from repro_torch.apc.exec import BLOCK_ROWS, device_schedule
     from repro_torch.core import build_lut_blocked, build_lut_nonblocked
     from repro_torch.core import truth_tables as tt
@@ -256,6 +312,45 @@ def phase_kernels_vs_plain(dev, log) -> dict[str, int]:
                         f"max_abs_err={e}")
                     check(e == 0, f"tap_run_program {name} rows={rows} "
                                   f"{kv} stats={stats} disagrees")
+    # per-block valid rows: random schedules (any int8 keys, values and
+    # digits, columns outside the tile, no-key slots, groups) and the
+    # add 3x20 program, valid counts from 1 to block_rows
+    bv_cases = [(f"random K{K} C{C} W{W} pack{pack}",
+                 random_schedule(rng, 64, K, C, W, 40), pack, 40, 3)
+                for K, C, W, pack in BLOCK_VALID_SCHEDULES]
+    add = apc_compile("add", 3, 20)
+    bv_cases.append(("add3x20", add.schedule_tensors, 1, add.min_cols, 3))
+    for name, sched, pack, cols, radix in bv_cases:
+        # the plain version reads a column outside the tile as -1 padding
+        plain_sched = list(sched)
+        for i in (0, 4):
+            plain_sched[i] = np.where(sched[i] < cols, sched[i], -1).astype(
+                np.int32)
+        on_dev = kernel.program_tensors_on(sched, dev)
+        plain_dev = kernel.program_tensors_on(plain_sched, dev)
+        for block_rows, n_blocks in BLOCK_VALID_SHAPES:
+            rows = block_rows * n_blocks
+            arr = torch.from_numpy(raw_digits(rows, cols, radix, rng)).to(dev)
+            bv = rng.integers(1, block_rows + 1, n_blocks)
+            bv[0], bv[-1] = 1, block_rows
+            bv = torch.from_numpy(bv.astype(np.int32)).to(dev)
+            for stats in (True, False):
+                out, counts = kernel.tap_run_program(
+                    arr, *on_dev, 0, block_rows=block_rows,
+                    collect_stats=stats, pack=pack, block_valid=bv)
+                want, want_counts = ref.run_program_plain(
+                    arr, *plain_dev, 0, block_rows=block_rows,
+                    collect_stats=stats, pack=pack, block_valid=bv)
+                e = int((out.int() - want.int()).abs().max())
+                if stats:
+                    e = max(e, int((counts.long() -
+                                    want_counts.long()).abs().max()))
+                err["tap_run_program"] = max(err["tap_run_program"], e)
+                log(f"  tap_run_program block_valid {name} block_rows="
+                    f"{block_rows} blocks={n_blocks} valid={bv.tolist()} "
+                    f"stats={stats} max_abs_err={e}")
+                check(e == 0, f"tap_run_program block_valid {name} "
+                              f"block_rows={block_rows} disagrees")
     # the schedule kernel's two slot bodies: unrolled (the non-blocked
     # ripple add) and general (the blocked schedules, four keys a step)
     lut_b = build_lut_blocked(tt.full_adder(3))
@@ -801,6 +896,268 @@ def check_ap_launches(calls: list[tuple], st, log) -> dict:
     return res
 
 
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock time of ``fn`` ending in a synchronize, after one
+    warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def registry_counts(names) -> dict[str, int]:
+    from repro_torch.apc.metrics import get_registry
+    return {k: get_registry().counter(k).value for k in names}
+
+
+def phase_pool_path(dev, card: str, log) -> dict:
+    """The array pool, the fault model, the graph runtime and power, on the
+    card at the main paths' sizes."""
+    import torch
+    from repro_torch import apc
+    from repro_torch.core import ap
+    from repro_torch.core.energy import energy_from_stats
+    from repro_torch.kernels.tap_pass import kernel
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    from repro_torch.kernels.ternary_matmul.ap import ap_matmul_cycle_counts
+
+    rng = np.random.default_rng(SEED + 8)
+    res: dict = {"card": card}
+
+    def launches() -> int:
+        return kernel.launch_counts["tap_run_program"]
+
+    # add 3x20 at 2^20 rows through ArrayPool(4, 4096, 256): 256 blocks
+    r, w = 3, 20
+    a, b, arr = named_operands("add", r, w, FULL_ROWS, rng)
+    arr = torch.from_numpy(arr).to(dev)
+    compiled = apc.compile_named("add", r, w)
+    pool = apc.ArrayPool(*POOL_ADD, device=dev)
+    st_pool, st_plain = ap.APStats(radix=r), ap.APStats(radix=r)
+    n0 = launches()
+    out_pool = apc.run(arr, compiled, stats=st_pool, pool=pool)
+    torch.cuda.synchronize()
+    n_launch = launches() - n0
+    out_plain = apc.run(arr, compiled, stats=st_plain, device=dev)
+    got = ap.decode_digits(out_pool.cpu().numpy(), list(range(w, 2 * w)), r)
+    check(np.array_equal(got, (a + b) % r ** w), "pooled add 3x20 wrong")
+    check(torch.equal(out_pool, out_plain),
+          "pooled add 3x20 digits != apc.run without a pool")
+    check(stats_fields(st_pool) == stats_fields(st_plain),
+          f"pooled add 3x20 APStats {st_pool} != without a pool {st_plain}")
+    check(n_launch == 1, f"pool.run launched the program kernel {n_launch} "
+                         f"times, not once")
+    _, traced = pool.run(arr, compiled, collect_stats=True)
+    _, want = apc.execute(arr, compiled, collect_stats=True,
+                          block_rows=POOL_ADD[1], device=dev)
+    # 2^20 rows: 256 blocks of 4096 over 4 arrays, 64 waves
+    n_blocks = FULL_ROWS // POOL_ADD[1]
+    check(tuple(traced.block_counts.shape) == (n_blocks, 10),
+          f"pool counter tensor {tuple(traced.block_counts.shape)}")
+    check(torch.equal(traced.block_counts, want.block_counts),
+          "pool counter rows != execute's at block_rows 4096")
+    wall = pool.wall_cycles(FULL_ROWS, compiled.n_compare_cycles,
+                            compiled.n_write_cycles)
+    check(wall["waves"] == n_blocks // POOL_ADD[0],
+          f"pool waves {wall['waves']} != {n_blocks // POOL_ADD[0]}")
+    pool_ms = event_ms(lambda: pool.run(arr, compiled, collect_stats=True),
+                       reps=5, inner=10)
+    exec_ms = event_ms(lambda: apc.execute(arr, compiled, collect_stats=True,
+                                           device=dev), reps=5, inner=10)
+    run_pool_ms = host_ms(lambda: apc.run(arr, compiled,
+                                          stats=ap.APStats(radix=r),
+                                          pool=pool))
+    run_plain_ms = host_ms(lambda: apc.run(arr, compiled,
+                                           stats=ap.APStats(radix=r),
+                                           device=dev))
+    res["add3x20"] = {"rows": FULL_ROWS, "pool": POOL_ADD,
+                      "blocks": n_blocks, "waves": wall["waves"],
+                      "launches": n_launch, "reference_launches": n_blocks,
+                      "pool_run_ms": pool_ms, "execute_ms": exec_ms,
+                      "run_pool_ms": run_pool_ms,
+                      "run_plain_ms": run_plain_ms}
+    log(f"  add 3x20 rows={FULL_ROWS} through ArrayPool{POOL_ADD}: digits "
+        f"and APStats == apc.run without a pool, {n_blocks} counter rows "
+        f"== execute's, {wall['waves']} waves; program-kernel launches "
+        f"{n_launch} (the reference: {n_blocks} pallas_calls); pool.run "
+        f"{pool_ms:.6f} ms, execute {exec_ms:.6f} ms (CUDA events, "
+        f"counters on); apc.run(pool=) {run_pool_ms:.3f} ms, apc.run "
+        f"{run_plain_ms:.3f} ms (host clock, APStats); card {card}")
+
+    # power: the pooled add's timeline against Table XI
+    tl = apc.pool_power(pool, compiled, traced, radix=r, n_masked=3)
+    st = ap.APStats(radix=r)
+    apc.accumulate(st, traced, compiled, n_rows=FULL_ROWS)
+    e_table = energy_from_stats(st, 3).total_j
+    check(tl.total_energy_j() == e_table,
+          f"pool_power {tl.total_energy_j()} J != Table XI {e_table} J")
+    check(len(tl.intervals) == n_blocks, "pool_power intervals != blocks")
+    res["power"] = {"energy_j": e_table, "intervals": len(tl.intervals),
+                    "summary_peak_w": tl.summary()["peak_w"]}
+    log(f"  pool_power on the pooled add: {len(tl.intervals)} intervals, "
+        f"{tl.total_energy_j():.6e} J == Table XI energy of its APStats")
+
+    # DevicePool over [cuda:0] and [cuda:0, cuda:0]: the shard sum
+    for mesh in ([dev], [dev, dev]):
+        dpool = apc.DevicePool(mesh, n_arrays=POOL_ADD[0], rows=POOL_ADD[1],
+                               cols=POOL_ADD[2])
+        st_d = ap.APStats(radix=r)
+        out_d = apc.run(arr, compiled, stats=st_d, pool=dpool)
+        check(torch.equal(out_d, out_plain),
+              f"DevicePool x{len(mesh)} digits != apc.run")
+        check(stats_fields(st_d) == stats_fields(st_plain),
+              f"DevicePool x{len(mesh)} APStats {st_d} != {st_plain}")
+        log(f"  DevicePool(mesh=[{dev}] x {len(mesh)}) add 3x20 rows="
+            f"{FULL_ROWS}: digits and APStats == apc.run")
+    del arr, out_pool, out_plain, out_d
+    torch.cuda.empty_cache()
+
+    # the AP matmul at qwen3-0.6b w1's width: pool=, runtime= and k_tile=
+    d, f = QWEN3_06B
+    packed, scale = packed_weights(d, f, rng, dev)
+    xi = rng.integers(-AP_MAX_ABS, AP_MAX_ABS + 1, (AP_TOKENS, d))
+    xi[0, 0] = AP_MAX_ABS
+    x = torch.from_numpy(xi.astype(np.float32)).to(dev)
+    width = apc.mac_acc_width(3, d, AP_MAX_ABS)
+    cyc = ap_matmul_cycle_counts(3, d, width, k_tile=AP_K_TILE)
+    y_ref = ternary_matmul(x, packed, scale, impl="ref")
+    mac_pool = apc.ArrayPool(*POOL_MAC, device=dev)
+    runtime = apc.Runtime(apc.ArrayPool(*POOL_MAC, device=dev))
+    routes = {"k_tile": {"k_tile": AP_K_TILE}, "pool": {"pool": mac_pool},
+              "runtime": {"runtime": runtime}}
+    stats = {}
+    res["ap_matmul"] = {"tokens": AP_TOKENS, "k": d, "n": f,
+                        "rows": AP_TOKENS * f, "width": width,
+                        "pool": POOL_MAC}
+    for name, kw in routes.items():
+        st = ap.APStats(radix=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = ternary_matmul(x, packed, scale, impl="ap", stats=st, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(y, y_ref),
+              f"AP matmul {name}= not bit-identical to impl='ref'")
+        check((st.n_write_cycles, st.n_compare_cycles)
+              == (cyc["write_cycles"], cyc["compare_cycles"]),
+              f"AP matmul {name}= cycles != ap_matmul_cycle_counts {cyc}")
+        stats[name] = stats_fields(st)
+        res["ap_matmul"][f"{name}_wall_ms"] = wall_ms
+        log(f"  AP matmul qwen3-0.6b w1 M={AP_TOKENS} {name}=: "
+            f"bit-identical to impl='ref', write/compare cycles "
+            f"{st.n_write_cycles}/{st.n_compare_cycles} == "
+            f"ap_matmul_cycle_counts(k_tile={AP_K_TILE}); wall {wall_ms:.3f}"
+            f" ms (host clock, first call); card {card}")
+    check(stats["pool"] == stats["k_tile"] == stats["runtime"],
+          f"AP matmul APStats differ between routes: {stats}")
+    rep = runtime.last_report
+    res["ap_matmul"]["runtime_report"] = rep
+    for name, kw in routes.items():
+        res["ap_matmul"][f"{name}_ms"] = host_ms(
+            lambda: ternary_matmul(x, packed, scale, impl="ap",
+                                   stats=ap.APStats(radix=3), **kw))
+    log(f"  AP matmul APStats equal on the k_tile=, pool= and runtime= "
+        f"routes; runtime makespan {rep['makespan_cycles']} cycles "
+        f"({rep['makespan_ns']:.1f} ns) against {rep['sequential_cycles']} "
+        f"sequential ({rep['sequential_ns']:.1f} ns), {rep['n_nodes']} "
+        f"nodes on {rep['n_arrays_total']} arrays; wall (host clock, "
+        f"median of 3 after a warm-up): k_tile= "
+        f"{res['ap_matmul']['k_tile_ms']:.3f} ms, pool= "
+        f"{res['ap_matmul']['pool_ms']:.3f} ms, runtime= "
+        f"{res['ap_matmul']['runtime_ms']:.3f} ms; card {card}")
+    del packed, scale, y, y_ref
+    torch.cuda.empty_cache()
+
+    # block_valid: two MAC graphs whose rows are not multiples of 4096,
+    # coalesced into row-concatenated launches, against each run alone
+    K = COALESCE_K
+    width = apc.mac_acc_width(3, K, AP_MAX_ABS)
+    tiled = apc.compile_mac_tiled(3, K, width, AP_K_TILE,
+                                  max_cols=POOL_MAC[2])
+    graphs, finals, macs = [], [], []
+    for n in COALESCE_ROWS:
+        xm = rng.integers(-AP_MAX_ABS, AP_MAX_ABS + 1, (n, K))
+        wm = rng.integers(-1, 2, (n, K))
+        g = apc.ProgramGraph()
+        finals.append(g.add_mac_tiled(torch.from_numpy(xm).to(dev),
+                                      torch.from_numpy(wm).to(dev), tiled))
+        graphs.append(g)
+        macs.append((xm, wm))
+    merged, maps = apc.coalesce_graphs(graphs, block_rows=POOL_MAC[1])
+    bvs = [n.block_valid for n in merged.nodes if n.block_valid]
+    check(bool(bvs), "coalesce_graphs built no block_valid launch")
+    grt = apc.Runtime(apc.ArrayPool(*POOL_MAC, device=dev))
+    n0 = launches()
+    mres = grt.run_graph(merged, collect_stats=True)
+    torch.cuda.synchronize()
+    merged_launches = launches() - n0
+    for g, mp, fin, (xm, wm) in zip(graphs, maps, finals, macs):
+        alone = grt.run_graph(g, collect_stats=True)
+        for nid in range(len(g)):
+            sl = mp[nid]
+            check(torch.equal(mres[sl.node][sl.res_lo:sl.res_hi],
+                              alone[nid]),
+                  f"coalesced slice of node {nid} digits != alone")
+            check(torch.equal(mres.traced[sl.node].block_counts[
+                sl.block_lo:sl.block_hi], alone.traced[nid].block_counts),
+                f"coalesced slice of node {nid} counter rows != alone")
+        acc = apc.decode_signed_digits_jnp(alone[fin], 3).cpu().numpy()
+        check(np.array_equal(acc, (xm * wm).sum(axis=1)),
+              "coalesced MAC graph: wrong dot products")
+    res["coalesce"] = {"rows": COALESCE_ROWS, "k": K, "block_valid": bvs,
+                       "merged_nodes": len(merged),
+                       "merged_launches": merged_launches}
+    log(f"  coalesce_graphs of MAC graphs with {COALESCE_ROWS} rows (K={K},"
+        f" k_tile {AP_K_TILE}): {len(merged)} merged nodes, block_valid "
+        f"{bvs}; each slice's digits and counter rows == its graph run "
+        f"alone; {merged_launches} program-kernel launches")
+
+    # faults: add 3x20 at 65536 rows on a faulty bank, card against CPU
+    a, b, arr = named_operands("add", r, w, FAULT_ROWS, rng)
+    counters = ("faults.detected", "faults.retries", "faults.retired",
+                "faults.checksum_runs", "pool.launches")
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        fpool = apc.ArrayPool(4, POOL_ADD[1], 2 * w + 2, device=where,
+                              faults=apc.FaultConfig(**FAULT_CFG))
+        st = ap.APStats(radix=r)
+        before = registry_counts(counters)
+        t0 = time.perf_counter()
+        out = apc.run(arr, compiled, stats=st, pool=fpool)
+        secs = time.perf_counter() - t0
+        after = registry_counts(counters)
+        runs.append((out.cpu(), stats_fields(st),
+                     fpool.fault_model.snapshot(),
+                     {k: after[k] - before[k] for k in counters}, secs))
+    clean = apc.run(arr, compiled, device=dev).cpu()
+    (o_card, s_card, snap_card, c_card, t_card), \
+        (o_cpu, s_cpu, snap_cpu, c_cpu, t_cpu) = runs
+    check(torch.equal(o_card, clean) and torch.equal(o_cpu, clean),
+          "faulty bank: digits != the fault-free run")
+    check(s_card == s_cpu, f"faulty bank APStats card {s_card} != CPU "
+                           f"{s_cpu}")
+    check(snap_card == snap_cpu, f"fault snapshot card {snap_card} != CPU "
+                                 f"{snap_cpu}")
+    check(c_card == c_cpu, f"faults.* counters card {c_card} != CPU "
+                           f"{c_cpu}")
+    check(c_card["faults.detected"] >= 1 and c_card["faults.retries"] >= 1,
+          f"faulty bank showed no detection and retry: {c_card}")
+    res["faults"] = {"rows": FAULT_ROWS, "config": FAULT_CFG,
+                     "snapshot": snap_card, "counters": c_card,
+                     "card_s": t_card, "cpu_s": t_cpu}
+    log(f"  faulty bank {FAULT_CFG} add 3x20 rows={FAULT_ROWS}: digits == "
+        f"fault-free; APStats, snapshot {snap_card} and counters {c_card} "
+        f"equal on the card and the CPU (host clock: card {t_card:.3f} s, "
+        f"CPU {t_cpu:.3f} s)")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: times and bounds
 # ---------------------------------------------------------------------------
@@ -1218,8 +1575,13 @@ def main() -> int:
         report["matmul_path"] = main_path(
             "packed-ternary matmul", phase_matmul_path,
             ("ternary_matmul", "ternary_matmul_tc", "tap_run_program"))
-        launches = {k: report["main_path"]["launches"][k]
-                    + report["matmul_path"]["launches"][k] for k in KERNELS}
+        log("[main path: array pool and graph runtime]")
+        report["pool_path"] = main_path(
+            "array pool and graph runtime",
+            lambda dev, log: phase_pool_path(dev, card, log),
+            ("tap_run_program",))
+        launches = {k: sum(report[p]["launches"][k] for p in (
+            "main_path", "matmul_path", "pool_path")) for k in KERNELS}
 
         log("[times]")
         report["times"] = phase_times(dev, card, log)

@@ -29,8 +29,22 @@ IR / compiler concept        Paper concept
                              predicated add/sub sweeps on an accumulator
                              (``compile_mac_tiled`` splits K into tiles
                              folded by ripple-add reductions).
-``pool.run_mac_tiled``       The K-tiled MAC on the executor, tile by tile,
-                             folded by ``graph.mac_fold_plan``.
+``pool.ArrayPool``           A bank of bounded MvCAM arrays: row blocks
+                             dealt over arrays, pipelined wall cycles,
+                             resident weight planes, the fault model.
+``pool.run_mac_tiled``       The K-tiled MAC on the executor or a pool, tile
+                             by tile, folded by ``graph.mac_fold_plan``.
+``faults.FaultModel``        Seeded stuck cells, write flips, wear and dead
+                             arrays; checksum detection, retry, retirement.
+``graph.ProgramGraph``       A DAG of program launches; ``graph_makespan``
+                             is its occupancy model, ``coalesce_graphs``
+                             row-concatenates like nodes of many graphs.
+``runtime.DevicePool``       The bank spread over a list of devices, counters
+                             summed across shards.
+``runtime.Runtime``          Topological-wavefront executor + occupancy
+                             model over a pool.
+``power.PowerTimeline``      Per-array power from the schedule and the exact
+                             per-block counters (Table XI).
 ==========================  =================================================
 
 Typical use::
@@ -43,14 +57,21 @@ Typical use::
 or via the drivers: ``repro_torch.core.ap.ripple_add(..., engine="apc")``.
 """
 from . import exec as exec  # noqa: PLC0414 — re-export the module
-from . import (caches as caches_mod, graph as graph_mod, ir, lower, mac,
-               metrics as metrics_mod, pool as pool_mod, stats,
-               trace as trace_mod)
+from . import (caches as caches_mod, faults as faults_mod,
+               graph as graph_mod, ir, layers as layers_mod, lower, mac,
+               metrics as metrics_mod, pool as pool_mod, power as power_mod,
+               runtime as runtime_mod, stats, trace as trace_mod)
 from .caches import (ResidentError, ResidentEvicted, ResidentHandle,
                      ResidentStale, ResidentStore, cache_stats,
                      clear_compile_caches)
-from .exec import execute, run
-from .graph import CARRIED, FoldStage, fold_stage_input, mac_fold_plan
+from .exec import execute, execute_sharded, run
+from .faults import (FaultConfig, FaultDetected, FaultModel,
+                     fault_config_from_env, faults_enabled)
+from .graph import (CARRIED, FoldStage, GraphNode, MergedGraphView,
+                    MergedSlice, ProgramGraph, coalesce_graphs,
+                    fold_stage_input, graph_makespan, mac_fold_plan)
+from .layers import N_MASKED_MAC
+from .runtime import DevicePool, GraphResult, Runtime
 from .ir import (AffineCol, ApplyLUT, CompareWrite, ForDigit, Program,
                  RelCol, SetCol, ZeroCol, digit)
 from .lower import (KERNEL_VARIANTS, CompiledProgram, PackedProgram, Step,
@@ -68,22 +89,33 @@ from .mac import (SUPPORT_DENSE, TiledMac, assemble_mac_rows_jnp,
                   mac_program, mac_reduce_program, mac_weight_support,
                   matmul_mac_rows, weight_digest)
 from .metrics import MetricsRegistry, get_registry
-from .pool import run_mac_tiled
+from .pool import (ArrayPool, drain_fault_charges, resident_enabled,
+                   run_mac_tiled, run_pooled)
+from .power import (Counters, PowerAccum, PowerInterval, PowerTimeline,
+                    emit_counter_tracks, graph_power, partition_blocks,
+                    pool_power)
 from .stats import TracedStats, accumulate, mac_sparsity, to_ap_stats
 from .trace import (Tracer, current_tracer, global_tracer,
                     reset_global_tracer, tracing, validate_chrome_trace)
 
 __all__ = [
-    "caches_mod", "exec", "graph_mod", "ir", "lower", "mac", "metrics_mod",
-    "pool_mod", "stats", "trace_mod",
+    "caches_mod", "exec", "faults_mod", "graph_mod", "ir", "layers_mod",
+    "lower", "mac", "metrics_mod", "pool_mod", "power_mod", "runtime_mod",
+    "stats", "trace_mod",
     "MetricsRegistry", "get_registry",
     "Tracer", "current_tracer", "global_tracer", "reset_global_tracer",
     "tracing", "validate_chrome_trace",
     "cache_stats", "clear_compile_caches",
     "ResidentError", "ResidentEvicted", "ResidentHandle", "ResidentStale",
     "ResidentStore",
-    "execute", "run",
-    "CARRIED", "FoldStage", "fold_stage_input", "mac_fold_plan",
+    "execute", "execute_sharded", "run",
+    "FaultConfig", "FaultDetected", "FaultModel", "fault_config_from_env",
+    "faults_enabled", "drain_fault_charges",
+    "CARRIED", "FoldStage", "GraphNode", "MergedGraphView", "MergedSlice",
+    "ProgramGraph", "coalesce_graphs", "fold_stage_input",
+    "graph_makespan", "mac_fold_plan",
+    "N_MASKED_MAC",
+    "DevicePool", "GraphResult", "Runtime",
     "AffineCol", "ApplyLUT", "CompareWrite", "ForDigit", "Program", "RelCol",
     "SetCol", "ZeroCol", "digit",
     "KERNEL_VARIANTS", "CompiledProgram", "PackedProgram", "Step",
@@ -98,6 +130,8 @@ __all__ = [
     "encode_weight_digits_jnp", "mac_acc_width", "mac_layout",
     "mac_program", "mac_reduce_program", "mac_weight_support",
     "matmul_mac_rows", "weight_digest",
-    "run_mac_tiled",
+    "ArrayPool", "resident_enabled", "run_mac_tiled", "run_pooled",
+    "Counters", "PowerAccum", "PowerInterval", "PowerTimeline",
+    "emit_counter_tracks", "graph_power", "partition_blocks", "pool_power",
     "TracedStats", "accumulate", "mac_sparsity", "to_ap_stats",
 ]

@@ -12,7 +12,7 @@ hits / misses / occupancy.
 
 The registry also tracks the OTHER bounded store of the reference's serving
 path: :class:`ResidentStore`, the weight-stationary resident-operand bank
-(the array pool that holds one is not ported yet).  A
+(one per :class:`~repro_torch.apc.pool.ArrayPool`, as ``pool.resident``).  A
 :class:`ResidentHandle` names weight digit columns that were written into
 the CAM bank once and stay resident across calls; generation bookkeeping
 makes stale handles (weights swapped under the same key) and evicted

@@ -273,7 +273,9 @@ def ripple_add(arr, lut: LUT, width: int, carry_col: int,
     (:mod:`repro_torch.apc`) — identical digits and counters, no per-pass
     syncs.  ``kernel_variant`` (apc engine only, also on the other drivers
     below) picks the schedule form (:mod:`repro_torch.apc.exec`); every
-    variant is bit-exact.  ``pool`` waits for the array-pool slice.
+    variant is bit-exact.  ``pool`` (an :class:`repro_torch.apc.ArrayPool`,
+    apc engine only, also on the other drivers below) streams the rows
+    over the array bank on the pool's device.
     """
     b_base = width if b_base is None else b_base
     arr = as_digits(arr, device)
@@ -481,24 +483,38 @@ def mac_tiled(x, w_ter, radix: int, width: int, *, k_tile: int, pool=None,
     ``k_tile``-term partial-sum programs whose radix-complement
     accumulators fold through a ripple-add reduction chain
     (:func:`repro_torch.apc.compile_mac_tiled`) — bit-exact vs the untiled
-    :func:`mac` at the same width.  Returns the signed int32 dot products.
-    ``pool=`` (the array bank) and ``runtime=`` (the graph runtime) are not
-    ported yet and raise.
+    :func:`mac` at the same width.  ``pool`` (an
+    :class:`repro_torch.apc.ArrayPool`) streams the rows over the array
+    bank and bounds every program row to the pool's column budget;
+    ``runtime`` (an :class:`repro_torch.apc.Runtime`) schedules the
+    tile/reduction programs as a program graph over the runtime's bank
+    instead (same digits, same counters, graph makespan in
+    ``runtime.last_report``).  Both run on their pool's device; without
+    them the programs run on ``device``.  Returns the signed int32 dot
+    products.
     """
     from .. import apc
-    if runtime is not None:
-        raise NotImplementedError(
-            "runtime= (the program-graph runtime) is not ported yet: it "
-            "comes with the graph runtime (ROADMAP queue 1, item 6)")
-    if pool is not None:
-        raise NotImplementedError(
-            "pool= (the bounded array bank) is not ported yet: it comes "
-            "with the array pool (ROADMAP queue 1, item 5)")
     K = x.shape[1]
     with _tspan("mac_tiled", rows=int(x.shape[0]), k=K, width=width,
-                k_tile=k_tile, route="plain"):
+                k_tile=k_tile,
+                route=("runtime" if runtime is not None
+                       else "pool" if pool is not None else "plain")):
+        if runtime is not None:
+            if pool is not None:
+                raise ValueError("runtime= already carries a pool; pass one "
+                                 "of pool= or runtime=")
+            runtime.check_knobs(kernel_variant=kernel_variant)
+            tiled = apc.compile_mac_tiled(radix, K, width, k_tile,
+                                          blocked=blocked,
+                                          max_cols=runtime.pool.cols)
+            dev = runtime.pool.device
+            (digits,) = runtime.run_mac_graph(
+                [(torch.as_tensor(x).to(dev), torch.as_tensor(w_ter).to(dev),
+                  tiled)], stats=stats)
+            return apc.decode_signed_digits_jnp(digits, radix)
+        max_cols = pool.cols if pool is not None else None
         tiled = apc.compile_mac_tiled(radix, K, width, k_tile,
-                                      blocked=blocked)
-        return apc.run_mac_tiled(x, w_ter, tiled, stats=stats,
+                                      blocked=blocked, max_cols=max_cols)
+        return apc.run_mac_tiled(x, w_ter, tiled, pool=pool, stats=stats,
                                  kernel_variant=kernel_variant,
                                  device=device)

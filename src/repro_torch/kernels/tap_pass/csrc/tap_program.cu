@@ -83,6 +83,7 @@ struct Args {
   int cols;
   int block_rows;
   long long n_valid;
+  const int32_t* block_valid;     // null, or valid rows of each block
   const uint4* records;
   int n_slots;
   int rec_words;
@@ -130,11 +131,16 @@ __global__ void __launch_bounds__(kMaxThreads) tap_program_kernel(Args a) {
   for (int q = t; q < sw; q += blockDim.x)
     tile[a.cols * ts + q] = 0xffffffffu;             // the dummy column
 
-  // rows past n_valid are padding: no writes and no counts
+  // padding rows get no writes and no counts: rows at or past n_valid, or,
+  // with block_valid, rows at or past block_valid[b] within block b
+  const long long limit =
+      a.block_valid ? static_cast<long long>(blockIdx.x) * a.block_rows +
+                          a.block_valid[blockIdx.x]
+                    : a.n_valid;
   uint32_t valid80 = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    if (4 * t + i < n_rows && row0 + 4 * t + i < a.n_valid)
+    if (4 * t + i < n_rows && row0 + 4 * t + i < limit)
       valid80 |= 0x80u << (8 * i);
   const bool active = t < sw && valid80 != 0;
   uint32_t* my = tile + t;
@@ -224,11 +230,15 @@ cudaError_t launch_kind(int kind, dim3 grid, int threads, size_t smem,
 // unrolled (1, 3, 3) and (1, 4, 3)); `n_hist_keys` is the sum over the
 // histogram slots of their valid keys; `counts` is a zeroed
 // (rows / block_rows, 10) int32 tensor, or null to skip the counters;
-// `cta_rows` (a multiple of 4, at most 4 * threads) are the rows of one CTA.
+// `cta_rows` (a multiple of 4, at most 4 * threads) are the rows of one CTA;
+// `block_valid` is null (rows at or past `n_valid` are padding) or
+// rows / block_rows int32 counts (rows of block b at or past block_valid[b]
+// are padding, and `n_valid` is not read).
 // Returns cudaGetLastError() after the launch.
 extern "C" int tap_run_program_launch(
     const void* in, void* out, long long rows, int cols, int block_rows,
-    long long n_valid, const void* records, int n_slots, int rec_words,
+    long long n_valid, const void* block_valid, const void* records,
+    int n_slots, int rec_words,
     int chunk_slots, int pack, int kind, int K, int C, int W,
     int n_hist_keys, void* counts, int cta_rows, int threads, void* stream) {
   if (cta_rows % 4 || cta_rows > 4 * threads || threads > kMaxThreads ||
@@ -238,6 +248,7 @@ extern "C" int tap_run_program_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const int8_t*>(in), static_cast<int8_t*>(out),
                cols, block_rows, n_valid,
+               static_cast<const int32_t*>(block_valid),
                static_cast<const uint4*>(records), n_slots, rec_words,
                chunk_slots, pack, K, C, W, n_hist_keys,
                static_cast<int32_t*>(counts), cta_rows};

@@ -57,8 +57,8 @@ _HEADERS = ("tap_common.cuh",)
 cuda_lib.register(cuda_lib.CudaLibrary(
     "tap_program", _CSRC, "tap_program.cu", _HEADERS,
     "tap_run_program_launch",
-    (_VP, _VP, _LL, _I, _I, _LL, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-     _VP, _I, _I, _VP)))
+    (_VP, _VP, _LL, _I, _I, _LL, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
+     _I, _VP, _I, _I, _VP)))
 cuda_lib.register(cuda_lib.CudaLibrary(
     "tap_schedule", _CSRC, "tap_schedule.cu", _HEADERS,
     "tap_apply_schedule_launch",
@@ -103,7 +103,8 @@ def _check_cuda_digits(arr: torch.Tensor, what: str) -> None:
 def tap_run_program(arr: torch.Tensor, cmp_cols, keys, key_valid, hist_flag,
                     wr_cols, wr_vals, n_valid_rows: int, *,
                     block_rows: int = BLOCK_ROWS,
-                    collect_stats: bool = False, pack: int = 1
+                    collect_stats: bool = False, pack: int = 1,
+                    block_valid: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Run a whole program over ``arr`` [rows, cols] int8, rows a multiple
     of ``block_rows``.
@@ -111,6 +112,10 @@ def tap_run_program(arr: torch.Tensor, cmp_cols, keys, key_valid, hist_flag,
     Returns the new digits and, with ``collect_stats``, a (rows /
     block_rows, 2 + 8) int32 counter tensor [sets, resets, hist[0..8)].
     Rows at or past ``n_valid_rows`` are padding: no writes, no counts.
+    ``block_valid`` (an int32 tensor of rows / block_rows counts on
+    ``arr``'s device, or ``None``) marks a row-concatenated launch instead:
+    rows of block ``b`` at or past ``block_valid[b]`` within it are the
+    padding, and ``n_valid_rows`` is not read.
     ``pack`` is the schedule form
     (:func:`repro_torch.apc.lower.resolve_schedule`): 1 replays the flat
     schedule serially, ``pack`` > 1 replays group-major VLIW slots, every
@@ -128,16 +133,28 @@ def tap_run_program(arr: torch.Tensor, cmp_cols, keys, key_valid, hist_flag,
     if arr.device.type == "cpu":
         return run_program_plain(arr, *sched, int(n_valid_rows),
                                  block_rows=block_rows,
-                                 collect_stats=collect_stats, pack=pack)
+                                 collect_stats=collect_stats, pack=pack,
+                                 block_valid=block_valid)
     return _launch_program(arr, sched, int(n_valid_rows), block_rows,
-                           collect_stats, pack)
+                           collect_stats, pack, block_valid)
 
 
-def _launch_program(arr, sched, n_valid, block_rows, collect_stats, pack):
+def _launch_program(arr, sched, n_valid, block_rows, collect_stats, pack,
+                    block_valid=None):
     _check_cuda_digits(arr, "tap_run_program")
     rows, cols = arr.shape
     if rows % block_rows:
         raise ValueError(f"rows={rows} not a multiple of {block_rows}")
+    if block_valid is not None and (
+            block_valid.device != arr.device
+            or block_valid.dtype != torch.int32
+            or tuple(block_valid.shape) != (rows // block_rows,)
+            or not block_valid.is_contiguous()):
+        raise ValueError(
+            f"block_valid must be a contiguous int32 tensor of "
+            f"{rows // block_rows} counts on {arr.device}, got "
+            f"{block_valid.dtype} of shape {tuple(block_valid.shape)} on "
+            f"{block_valid.device}")
     if pack > MAX_PACK:
         raise ValueError(f"pack={pack} exceeds {MAX_PACK}")
     dev = arr.device
@@ -173,6 +190,7 @@ def _launch_program(arr, sched, n_valid, block_rows, collect_stats, pack):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             arr.data_ptr(), out.data_ptr(), rows, cols, block_rows, n_valid,
+            None if block_valid is None else block_valid.data_ptr(),
             rec.records.data_ptr(), rec.n_slots, lay.words, rec.chunk_slots,
             pack, rec.kind, lay.K, lay.C, lay.W, rec.n_hist_keys,
             counts.data_ptr() if collect_stats else None, cta_rows, threads,

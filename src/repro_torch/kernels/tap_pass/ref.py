@@ -84,7 +84,7 @@ def run_program_plain(arr: torch.Tensor, cmp_cols: torch.Tensor,
                       hist_flag: torch.Tensor, wr_cols: torch.Tensor,
                       wr_vals: torch.Tensor, n_valid_rows: int, *,
                       block_rows: int, collect_stats: bool = False,
-                      pack: int = 1
+                      pack: int = 1, block_valid=None
                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Replay dense schedule tensors on [rows, cols] int8 digits.
 
@@ -92,7 +92,10 @@ def run_program_plain(arr: torch.Tensor, cmp_cols: torch.Tensor,
     against the pre-group array, then the slots' writes land in order
     (``pack == 1`` is the flat serial schedule: duplicate write columns
     apply one after another and each change is charged).  Rows at or past
-    ``n_valid_rows`` get no writes and no counts.  Returns the new digits
+    ``n_valid_rows`` get no writes and no counts; with ``block_valid``
+    (rows / block_rows counts, a sequence or a tensor) it is rows of block
+    ``b`` at or past ``block_valid[b]`` within it instead, and
+    ``n_valid_rows`` is not read.  Returns the new digits
     and, with ``collect_stats``, one int32 counter row per ``block_rows``
     block laid out [sets, resets, hist[0..HIST_BINS)], the top bin
     saturating at ``HIST_BINS - 1`` mismatches.
@@ -117,7 +120,15 @@ def run_program_plain(arr: torch.Tensor, cmp_cols: torch.Tensor,
     c_ok = cmp_cols >= 0                                   # (S, C)
     c_idx = cmp_cols.clamp(min=0).long()
     out = arr.clone()
-    row_ok = torch.arange(rows, device=dev) < n_valid_rows
+    if block_valid is None:
+        row_ok = torch.arange(rows, device=dev) < n_valid_rows
+    else:
+        bv = torch.as_tensor(block_valid).to(device=dev, dtype=torch.int64)
+        if tuple(bv.shape) != (rows // block_rows,):
+            raise ValueError(f"block_valid has {bv.numel()} counts for "
+                             f"{rows // block_rows} blocks")
+        local = torch.arange(block_rows, device=dev)
+        row_ok = (local[None, :] < bv[:, None]).reshape(rows)
     per_row = (torch.zeros((rows, 2 + HIST_BINS), dtype=torch.int32,
                            device=dev) if collect_stats else None)
     for g in range(n_slots // pack):

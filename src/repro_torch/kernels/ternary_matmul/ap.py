@@ -16,9 +16,12 @@ accumulator at the same width, and a ripple-add reduction chain folds the
 partials.  Because every program wraps mod ``r^width``, the tiled digits —
 and hence the decoded matmul — are bit-identical to the untiled program,
 and the charged compare/write cycles are the exact sum of the tile programs
-plus the reduction programs.  The reference's bank (``pool=``), graph
-runtime (``runtime=``) and row sharding (``mesh=``) are not ported yet and
-raise.
+plus the reduction programs.  ``pool=`` (an
+:class:`repro_torch.apc.ArrayPool`) streams the rows through the array
+bank, K-tiled to its column budget; ``runtime=`` (an
+:class:`repro_torch.apc.Runtime`) schedules the tiled MAC as a program
+graph over its bank; ``mesh=`` (a sequence of devices) shards the rows of
+the untiled program.
 
 Data movement: encode (digit extraction, weight trits, row replication)
 and decode (signed radix-complement) run on the device; the one host sync
@@ -86,9 +89,17 @@ def ternary_matmul_ap(x: torch.Tensor, packed: torch.Tensor,
     (an :class:`~repro_torch.core.ap.APStats`) collects the
     functional-simulator counters for the energy model.
 
-    ``k_tile`` runs the K-tiled programs (the tiled-vs-untiled oracle);
-    without it one untiled MAC program runs.  ``kernel_variant`` picks the
-    program-kernel schedule form; every variant is bit-exact.  Bit-exact vs
+    Execution routing: ``pool=`` streams the M*N rows through the array
+    bank on the pool's device, K-tiling the MAC to the pool's column
+    budget (``k_tile`` overrides the derived tile; it must fit);
+    ``runtime=`` builds the tiled MAC as a
+    :class:`repro_torch.apc.ProgramGraph` and schedules it over the
+    runtime's (possibly device-spanning) bank — same digits, same counters,
+    plus the graph makespan in ``runtime.last_report``; ``k_tile`` alone
+    runs the tiled programs on the single-array executor (the
+    tiled-vs-untiled oracle); ``mesh`` shards the M*N row axis of the
+    untiled program.  ``kernel_variant`` picks the program-kernel schedule
+    form; every variant is bit-exact.  Bit-exact vs
     :func:`~repro_torch.kernels.ternary_matmul.ref.ternary_matmul_ref` on
     every route because the integer accumulator converts to float32
     exactly and the final scale-multiply is the same float32 op.
@@ -96,13 +107,6 @@ def ternary_matmul_ap(x: torch.Tensor, packed: torch.Tensor,
     from ... import apc
     from ...apc import trace
 
-    pool_, graph = ("the array pool (ROADMAP queue 1, item 5)",
-                    "the graph runtime (ROADMAP queue 1, item 6)")
-    for name, val, what in (("mesh", mesh, graph), ("pool", pool, pool_),
-                            ("runtime", runtime, graph)):
-        if val is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet: it comes with {what}")
     xi, max_abs = _as_int_activations(x)
     m, kdim = xi.shape
     w_ter = unpack_ternary(packed, dtype=torch.int8)               # [K', N]
@@ -122,25 +126,59 @@ def ternary_matmul_ap(x: torch.Tensor, packed: torch.Tensor,
             f"(mac_acc_width({radix}, {kp}, {max_abs}))")
     # row (m, n) <- (x[m, :], w[:, n]): M*N dot products, on the device
     x_rows, w_rows = apc.matmul_mac_rows(xi, w_ter)                # [M*N, K']
-    route = "tiled" if k_tile is not None else "plain"
+    route = ("runtime" if runtime is not None
+             else "tiled" if pool is not None or k_tile is not None
+             else "plain")
     with trace.span("ternary_matmul_ap", cat="matmul", m=m, k=kp, n=n,
                     width=width, route=route):
-        if k_tile is not None:
-            tiled = apc.compile_mac_tiled(radix, kp, width, k_tile,
-                                          blocked=blocked)
-            acc = apc.run_mac_tiled(x_rows, w_rows, tiled, stats=stats,
-                                    block_rows=block_rows,
-                                    kernel_variant=kernel_variant,
-                                    device=x_rows.device)
-        else:
-            compiled = apc.compile_mac(radix, kp, width, blocked=blocked)
-            arr = apc.encode_mac_rows_jnp(x_rows, w_rows, radix, width)
-            out = apc.run(arr, compiled, stats=stats, block_rows=block_rows,
-                          kernel_variant=kernel_variant, device=arr.device)
-            acc = apc.decode_mac_acc_jnp(out, radix, kp, width)    # [M*N]
+        acc = _run_routed(apc, x_rows, w_rows, radix, kp, width,
+                          mesh=mesh, pool=pool, runtime=runtime,
+                          k_tile=k_tile, stats=stats, block_rows=block_rows,
+                          blocked=blocked, kernel_variant=kernel_variant)
     y = (acc.reshape(m, n).to(torch.float32)
          * scale.to(device=acc.device, dtype=torch.float32)[None, :])
-    return y.to(x.dtype)
+    return y.to(device=x.device, dtype=x.dtype)
+
+
+def _run_routed(apc, x_rows, w_rows, radix, kp, width, *, mesh, pool,
+                runtime, k_tile, stats, block_rows, blocked,
+                kernel_variant):
+    if runtime is not None:
+        if mesh is not None or pool is not None:
+            raise ValueError("runtime= already carries a pool; pass one of "
+                             "mesh=, pool=, or runtime=")
+        if block_rows is not None:
+            raise ValueError("block_rows only applies without runtime=; "
+                             "the runtime pool's own rows govern blocks")
+        runtime.check_knobs(kernel_variant=kernel_variant)
+        max_cols = runtime.pool.cols
+        kt = k_tile if k_tile is not None else default_k_tile(max_cols,
+                                                              width)
+        tiled = apc.compile_mac_tiled(radix, kp, width, kt,
+                                      blocked=blocked, max_cols=max_cols)
+        dev = runtime.pool.device
+        (digits,) = runtime.run_mac_graph(
+            [(x_rows.to(dev), w_rows.to(dev), tiled)], stats=stats)
+        return apc.decode_signed_digits_jnp(digits, radix)
+    if pool is not None or k_tile is not None:
+        if mesh is not None:
+            raise ValueError("the tiled/pool route does not mesh-shard; "
+                             "pass one of mesh= or pool=/k_tile=")
+        max_cols = pool.cols if pool is not None else None
+        kt = k_tile if k_tile is not None else default_k_tile(pool.cols,
+                                                              width)
+        tiled = apc.compile_mac_tiled(radix, kp, width, kt,
+                                      blocked=blocked, max_cols=max_cols)
+        return apc.run_mac_tiled(x_rows, w_rows, tiled, pool=pool,
+                                 stats=stats, block_rows=block_rows,
+                                 kernel_variant=kernel_variant,
+                                 device=x_rows.device)
+    compiled = apc.compile_mac(radix, kp, width, blocked=blocked)
+    arr = apc.encode_mac_rows_jnp(x_rows, w_rows, radix, width)
+    out = apc.run(arr, compiled, stats=stats, mesh=mesh,
+                  block_rows=block_rows, kernel_variant=kernel_variant,
+                  device=arr.device)
+    return apc.decode_mac_acc_jnp(out, radix, kp, width)           # [M*N]
 
 
 def ap_matmul_cycle_counts(radix: int, K: int, width: int,

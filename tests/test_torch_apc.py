@@ -94,14 +94,28 @@ def test_execute_without_stats_and_empty_batch():
 
 
 def test_execute_rejects_narrow_arrays_and_unported_routes():
+    """Narrow arrays raise; ``run(pool=)`` and ``run(mesh=)``, which raised
+    NotImplementedError before the array pool and the graph runtime were
+    ported, run and match the reference's digits and APStats, and keep its
+    ValueErrors (mesh= with pool=, block_rows= with pool=)."""
     compiled = apc.compile_named("add", 3, 4)
+    theirs = ref_apc.compile_named("add", 3, 4)
     with pytest.raises(ValueError, match="columns"):
         apc.execute(np.zeros((4, 8), np.int8), compiled, device="cpu")
-    arr = np.zeros((4, 9), np.int8)
-    with pytest.raises(NotImplementedError, match="pool"):
-        apc.run(arr, compiled, pool=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        apc.run(arr, compiled, mesh=object(), device="cpu")
+    arr = _operands("add", 3, 4, 40, seed=6)
+    s_ref = ref_ap.APStats(radix=3)
+    want = ref_apc.run(jnp.asarray(arr), theirs, stats=s_ref,
+                       pool=ref_apc.ArrayPool(n_arrays=2, rows=16, cols=9))
+    pool = apc.ArrayPool(n_arrays=2, rows=16, cols=9, device="cpu")
+    for kw in ({"pool": pool}, {"mesh": ["cpu", "cpu", "cpu"]}):
+        s_ours = ap.APStats(radix=3)
+        out = apc.run(arr, compiled, stats=s_ours, **kw)
+        assert np.array_equal(out.numpy(), np.asarray(want))
+        assert stats_fields(s_ours) == stats_fields(s_ref)
+    with pytest.raises(ValueError, match="mesh= or pool="):
+        apc.run(arr, compiled, pool=pool, mesh=["cpu"])
+    with pytest.raises(ValueError, match="block_rows"):
+        apc.run(arr, compiled, pool=pool, block_rows=16)
 
 
 @pytest.mark.parametrize("k,k_tile", [(4, 2), (6, 3)])

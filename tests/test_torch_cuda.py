@@ -413,6 +413,102 @@ def test_program_kernel_random_schedules(dev, K, C, W, pack, distinct,
         assert torch.equal(out[500:], arr[500:])
 
 
+@pytest.mark.parametrize("K,C,W,pack,distinct,kind", [
+    (1, 3, 3, 1, True, 1), (1, 4, 3, 1, True, 2),
+    (3, 12, 4, 1, False, 0), (2, 3, 2, 4, False, 0)])
+@pytest.mark.parametrize("stats", [True, False])
+def test_program_kernel_block_valid_random_schedules(dev, K, C, W, pack,
+                                                     distinct, kind, stats):
+    """Per-block valid rows: random schedules, block counts and valid
+    counts from 1 to block_rows; rows past a block's count are untouched
+    and uncounted, and ``n_valid`` is not read."""
+    from repro_torch.kernels.tap_pass.records import choose_layout
+    rng = np.random.default_rng(K * 100 + C * 10 + W + pack + 7)
+    cols = 40
+    sched = _random_schedule(rng, 64, K, C, W, cols, distinct)
+    assert choose_layout(sched, pack)[0] == kind
+    plain = list(sched)
+    plain[0] = np.where(sched[0] < cols, sched[0], -1).astype(np.int32)
+    plain[4] = np.where(sched[4] < cols, sched[4], -1).astype(np.int32)
+    on_dev = tuple(torch.from_numpy(t).to(dev) for t in sched)
+    plain = tuple(torch.from_numpy(t).to(dev) for t in plain)
+    for block_rows, n_blocks in ((5, 7), (103, 3), (1024, 2), (4096, 5)):
+        rows = block_rows * n_blocks
+        digits = np.where(rng.random((rows, cols)) < 0.6,
+                          rng.integers(-1, 3, (rows, cols)),
+                          rng.integers(-128, 128, (rows, cols)))
+        arr = torch.from_numpy(digits.astype(np.int8)).to(dev)
+        bv = rng.integers(1, block_rows + 1, n_blocks)
+        bv[0], bv[-1] = 1, block_rows
+        bv = torch.from_numpy(bv.astype(np.int32)).to(dev)
+        out, counts = kernel.tap_run_program(
+            arr, *on_dev, 0, block_rows=block_rows, collect_stats=stats,
+            pack=pack, block_valid=bv)
+        want, want_counts = ref.run_program_plain(
+            arr, *plain, 0, block_rows=block_rows, collect_stats=stats,
+            pack=pack, block_valid=bv)
+        assert torch.equal(out, want)
+        if stats:
+            assert torch.equal(counts, want_counts)
+        pad = (torch.arange(block_rows, device=dev)[None, :]
+               >= bv[:, None].long()).reshape(-1)
+        assert torch.equal(out[pad], arr[pad])
+    with pytest.raises(ValueError, match="block_valid"):
+        kernel.tap_run_program(arr, *on_dev, 0, block_rows=block_rows,
+                               block_valid=bv[:-1])
+
+
+def test_pool_and_runtime_on_the_card_match_the_cpu(dev):
+    """ArrayPool.run (fault-free, block_valid, faulty) and Runtime.run_graph
+    over coalesced MAC graphs on cuda:0 give the CPU port's digits, counter
+    rows and fault state; a fault-free pool.run is one launch."""
+    from repro_torch.core import ap
+    rng = np.random.default_rng(3)
+    r, w, rows = 3, 20, 3 * 4096 + 100
+    arr = ap.encode_operands(rng.integers(0, r ** w, rows),
+                             rng.integers(0, r ** w, rows), r, w)
+    compiled = apc.compile_named("add", r, w)
+    for kw, bv in (({}, None), ({}, (4096, 1, 77)),
+                   ({"faults": apc.FaultConfig(flip_rate=1e-5, seed=1,
+                                               dead_arrays=(2,),
+                                               retire_after=100)}, None)):
+        got = []
+        for d in (dev, "cpu"):
+            pool = apc.ArrayPool(4, 4096, 2 * w + 2, device=d, **kw)
+            a = arr[:3 * 4096] if bv else arr
+            before = kernel.launch_counts["tap_run_program"]
+            out, tr = pool.run(a, compiled, collect_stats=True,
+                               block_valid=bv, radix=r)
+            if d is dev and "faults" not in kw:
+                assert kernel.launch_counts["tap_run_program"] == before + 1
+            got.append((out.cpu(), tr.block_counts.cpu(),
+                        pool.fault_model and pool.fault_model.snapshot()))
+        assert torch.equal(got[0][0], got[1][0])
+        assert torch.equal(got[0][1], got[1][1])
+        assert got[0][2] == got[1][2]
+    radix, K, max_abs = 3, 40, 3
+    width = apc.mac_acc_width(radix, K, max_abs)
+    tiled = apc.compile_mac_tiled(radix, K, width, 16)
+    macs = [(rng.integers(-max_abs, max_abs + 1, (n, K)),
+             rng.integers(-1, 2, (n, K))) for n in (1000, 333)]
+    results = []
+    for d in (dev, "cpu"):
+        graphs = [apc.ProgramGraph() for _ in macs]
+        for g, (x, wt) in zip(graphs, macs):
+            g.add_mac_tiled(torch.from_numpy(x).to(d),
+                            torch.from_numpy(wt).to(d), tiled)
+        merged, _ = apc.coalesce_graphs(graphs, block_rows=256)
+        assert any(n.block_valid for n in merged.nodes)
+        pool = apc.ArrayPool(4, 256, tiled.min_cols, device=d)
+        res = apc.Runtime(pool).run_graph(merged, collect_stats=True)
+        results.append(res)
+    for nid in results[1]:
+        assert torch.equal(results[0][nid].cpu(), results[1][nid])
+        assert torch.equal(results[0].traced[nid].block_counts.cpu(),
+                           results[1].traced[nid].block_counts)
+    assert results[0].report == results[1].report
+
+
 def test_program_records_cached_per_program(dev):
     """The records are encoded once per schedule tensors and column count;
     an in-place change of a schedule tensor encodes them again."""

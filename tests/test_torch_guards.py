@@ -64,7 +64,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
              lambda: ap.ripple_add(arr, lut, 4, 8),
              lambda: ap.ripple_add(arr, lut, 4, 8, engine="apc"),
              lambda: ops.tap_apply_lut(arr, lut, (0, 1, 2)),
-             lambda: ops.tap_ripple_add(arr, lut, 4, 8)]
+             lambda: ops.tap_ripple_add(arr, lut, 4, 8),
+             lambda: apc.ArrayPool(n_arrays=1, rows=8, cols=9),
+             lambda: apc.DevicePool(None, n_arrays=1, rows=8, cols=9),
+             lambda: apc.DevicePool([None], n_arrays=1, rows=8, cols=9),
+             lambda: apc.execute_sharded(arr, compiled, [None, None]),
+             lambda: apc.run(arr, compiled, mesh=[None])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

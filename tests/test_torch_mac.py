@@ -469,22 +469,51 @@ def test_ternary_matmul_ap_raises_like_reference():
 
 
 def test_unported_routes_raise_not_implemented():
-    (_, _), (op, os_) = _weights(16, 2, 1)
-    x = torch.ones((2, 16))
-    for kw in ({"mesh": object()}, {"pool": object()},
-               {"runtime": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The routes that raised NotImplementedError before the array pool
+    and the graph runtime were ported now run and match the reference:
+    ``ternary_matmul_ap(mesh=|pool=|runtime=)``,
+    ``run_mac_tiled(pool=|resident=)`` and ``mac_tiled(pool=|runtime=)``;
+    they keep the reference's ValueErrors (mesh= or runtime= with pool=,
+    block_rows= with pool=, a K mismatch)."""
+    (tp, ts), (op, os_) = _weights(16, 2, 1)
+    xn = np.random.default_rng(1).integers(-2, 3, (2, 16)).astype(
+        np.float32)
+    x = torch.from_numpy(xn)
+    width = apc.mac_acc_width(3, 16, 2)
+    cols = apc.mac_layout(8, width)["n_cols"]
+    pool = apc.ArrayPool(n_arrays=2, rows=2, cols=cols, device=CPU)
+    ref_pool = ref_apc.ArrayPool(n_arrays=2, rows=2, cols=cols)
+    want = ref_tap.ternary_matmul_ap(jnp.asarray(xn), tp, ts,
+                                     pool=ref_pool)
+    for kw in ({"mesh": [CPU, CPU]}, {"pool": pool},
+               {"runtime": apc.Runtime(pool)}):
+        y = ternary_matmul_ap(x, op, os_, **kw)
+        assert np.array_equal(y.numpy(), np.asarray(want))
+    for kw, match in (({"mesh": [CPU], "pool": pool}, "mesh"),
+                      ({"runtime": apc.Runtime(pool), "pool": pool},
+                       "runtime"),
+                      ({"pool": pool, "block_rows": 8}, "block_rows")):
+        with pytest.raises(ValueError, match=match):
             ternary_matmul_ap(x, op, os_, **kw)
-    xi, wi = np.ones((3, 4), np.int64), np.ones((3, 4), np.int64)
+    xi, wi = _operands(3, 4, 2, 3, 5)
     tiled = apc.compile_mac_tiled(3, 4, 3, 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        apc.run_mac_tiled(xi, wi, tiled, pool=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        apc.run_mac_tiled(xi, wi, tiled, resident=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ap.mac_tiled(xi, wi, 3, 3, k_tile=2, pool=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ap.mac_tiled(xi, wi, 3, 3, k_tile=2, runtime=object(), device=CPU)
+    mac_pool = apc.ArrayPool(n_arrays=2, rows=2, cols=64, device=CPU)
+    wi_t = torch.from_numpy(wi)
+    handle = mac_pool.resident.pin("w", apc.weight_digest(wi_t),
+                                   lambda: apc.encode_weight_digits_jnp(
+                                       wi_t))
+    for kw in ({"pool": mac_pool}, {"resident": handle, "device": CPU},
+               {"pool": mac_pool, "resident": handle}):
+        acc = apc.run_mac_tiled(xi, wi, tiled, **kw)
+        assert np.array_equal(acc.numpy(), (xi * wi).sum(axis=1))
+    for kw in ({"pool": mac_pool}, {"runtime": apc.Runtime(mac_pool)}):
+        acc = ap.mac_tiled(xi, wi, 3, 3, k_tile=2, **kw)
+        assert np.array_equal(acc.numpy(), (xi * wi).sum(axis=1))
+    with pytest.raises(ValueError, match="runtime"):
+        ap.mac_tiled(xi, wi, 3, 3, k_tile=2, pool=mac_pool,
+                     runtime=apc.Runtime(mac_pool))
+    with pytest.raises(ValueError, match="block_rows"):
+        apc.run_mac_tiled(xi, wi, tiled, pool=mac_pool, block_rows=8)
     with pytest.raises(ValueError, match="compiled for"):
         apc.run_mac_tiled(xi[:, :3], wi[:, :3], tiled, device=CPU)
 
