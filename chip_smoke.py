@@ -58,6 +58,28 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
       the CPU.  The program kernel's ``block_valid`` launches are also
       held against its plain version in step 2, on random schedules and
       the add, valid counts from 1 to the block's rows.
+   d. qwen3-0.6b at its published width through ``repro_torch.models``
+      (28 layers, d_model 1024, 16 heads / 8 KV of 128, d_ff 3072, vocab
+      151936, tied embeddings, qk-norm): seeded weights (``init_params``),
+      MLPs packed by ``quantize_model_params``, ``cast_params`` for fp32
+      and bf16 compute.  Prefill: ``forward`` on 2 x 1024 seeded tokens
+      (M = 2048, blockwise attention), exactly 84 ``ternary_matmul_tc``
+      launches and no ``ternary_matmul``, logits against the plain route
+      (``models.mlp.plain_packed_mlp()``) within MODEL_TOL, and a zeroed
+      ``w2_scale`` must fail that check (layer 0; layer 14 too in fp32).
+      Serving (``launch/serve.py``'s recipe): batch 4, 16-token prompts
+      one token a step through ``decode_step``, 32 greedy tokens, a
+      128-token cache (fp32 under fp32 compute, else bf16);
+      exactly 84 ``ternary_matmul`` launches and no ``ternary_matmul_tc``
+      a step; the plain route teacher-forced with the kernel route's
+      tokens, logits within MODEL_TOL at every step; in fp32, ``forward``
+      on the 4 x 48 sequence against every step's logits within
+      DECODE_FWD_TOL.  Prefill tokens/s (CUDA events) and decode ms per
+      step (host clock, median; and the device's time alone, a CUDA graph
+      of one step) of the kernel route, the plain route and the dense
+      model (the same weights unpacked, ``torch.matmul`` in the MLPs);
+      after phase 4, the share of a decode step that its 84 matmul
+      kernels take.
 4. Times: CUDA-event medians of each kernel, its plain version and, for the
    matmul, the library product on a dense weight, beside each kernel's
    bound, at the main paths' shapes (and qwen2-72b's MLP width for the
@@ -161,6 +183,27 @@ FAULT_CFG = dict(flip_rate=2e-6, seed=0, dead_arrays=(1,), max_retries=8,
 BLOCK_VALID_SCHEDULES = ((1, 3, 3, 1), (1, 4, 3, 1), (3, 12, 4, 1),
                          (2, 3, 2, 4))
 BLOCK_VALID_SHAPES = ((4096, 6), (1000, 3), (13, 5))
+# phase 3d: qwen3-0.6b at its published width (src/repro/configs/
+# qwen3_0_6b.py); prefill B x S (M = 2048, the blockwise attention path);
+# serving as src/repro/launch/serve.py's defaults: batch, prompt tokens,
+# new tokens, cache length
+MODEL_ARCH = "qwen3-0.6b"
+PREFILL_SHAPE = (2, 1024)
+SERVE_SHAPE = (4, 16, 32, 128)
+# the kernel route's logits against the plain route's, |y - want| <= tol ·
+# max|want| + tol · |want| (as MLP_TOL), and decode steps against forward.
+# On an H100 the seeded model read at most 2.4e-6 (fp32 prefill; decode
+# 6.6e-7) and 0.0148 (bf16 decode; prefill 0.013) of (max|want| +
+# |want|), decode against forward 1.7e-6 (fp32): the tolerances are 4.1x,
+# 3.4x and 5.9x those
+MODEL_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+DECODE_FWD_TOL = 1e-5
+# the deliberate fault: one layer's w2_scale zeroed, and the layers it must
+# move past the tolerance.  Layer 0 moved the logits 40243x (fp32) and
+# 10.0x (bf16, at 4e-2) past it; layer 14 4246x in fp32 but 0.92 of the
+# bf16 tolerance, where kernel against plain reads 0.3 of it
+FAULT_LAYERS = (0, 14)
+FAULT_GATES = {"float32": (0, 14), "bfloat16": (0,)}
 # ternary-matmul timings: (model, K, N, M), K x N the model's w1
 MATMUL_TIMES = tuple(("qwen3-0.6b", *QWEN3_06B, m)
                     for m in (1, 4, 8, 16, 2048)) + \
@@ -1159,6 +1202,300 @@ def phase_pool_path(dev, card: str, log) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3d: qwen3-0.6b at full width through the model stack
+# ---------------------------------------------------------------------------
+
+def dense_mlp_params(params: dict) -> dict:
+    """The tree with every packed MLP unpacked to its float weights
+    (``unpack(words) * scale``, fp32), so ``mlp()`` takes its dense branch:
+    ``torch.matmul`` on the same function, the library baseline."""
+    import torch
+    from repro_torch.kernels.ternary_matmul.ref import unpack_ternary
+
+    def unpack(packed, scale):
+        if packed.dim() == 3:                        # stacked layers
+            return torch.stack([unpack(p, s) for p, s in zip(packed, scale)])
+        return unpack_ternary(packed) * scale[None, :]
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        if "w1_packed" in node:
+            return {k: unpack(node[f"{k}_packed"], node[f"{k}_scale"])
+                    for k in ("w1", "w3", "w2")}
+        return {k: walk(v) for k, v in node.items()}
+    return walk(params)
+
+
+def with_zeroed_w2_scale(params: dict, layer: int) -> dict:
+    """A copy of the tree sharing every leaf but one layer's ``w2_scale``,
+    which is zeroed (that layer's MLP adds nothing): a deliberate fault."""
+    stack = params["stack"]["pos_0"]
+    scale = stack["mlp"]["w2_scale"].clone()
+    scale[layer] = 0
+    return {**params, "stack": {"pos_0": {
+        **stack, "mlp": {**stack["mlp"], "w2_scale": scale}}}}
+
+
+def rel_err(y, want, tol: float) -> tuple[float, float]:
+    """max |y - want| and the largest |y - want| / (tol·max|want| +
+    tol·|want|): the check holds where the second is at most 1 (NaN fails,
+    as inf)."""
+    d = (y.float() - want.float()).abs()
+    w = want.float().abs()
+    ratio = d / (tol * float(w.max()) + tol * w)
+    worst = float(ratio.max())
+    return float(d.max()), (worst if worst == worst else float("inf"))
+
+
+def matmul_launches() -> dict[str, int]:
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    return dict(tk.launch_counts)
+
+
+def matmul_launches_since(before: dict[str, int]) -> dict[str, int]:
+    return {k: n - before[k] for k, n in matmul_launches().items()}
+
+
+def phase_model_path(dev, card: str, log) -> dict:
+    """qwen3-0.6b at its published width through ``repro_torch.models``:
+    a seeded, packed model; prefill and greedy serving on the kernel route,
+    held against the plain route (``plain_packed_mlp()``) and decode against
+    forward; times of the kernel, plain and dense routes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model, quant
+
+    base = get_config(MODEL_ARCH)
+    n_mlp = 3 * base.n_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        packed = quant.quantize_model_params(
+            model.init_params(base, seed=SEED, device=dev))
+        dense = dense_mlp_params(packed)
+        torch.cuda.synchronize()
+        res: dict = {"arch": MODEL_ARCH, "card": card,
+                     "setup_s": time.perf_counter() - t0,
+                     "n_params": base.n_params}
+        log(f"  {MODEL_ARCH}: {base.n_layers} layers, d_model {base.d_model},"
+            f" {base.n_heads} heads / {base.n_kv_heads} KV of "
+            f"{base.head_dim_}, d_ff {base.d_ff}, vocab {base.vocab}, "
+            f"{base.n_params} parameters; seeded, packed and unpacked to "
+            f"dense in {res['setup_s']:.3f} s")
+        b, s = PREFILL_SHAPE
+        tokens = torch.randint(0, base.vocab, (b, s), generator=gen,
+                               device=dev)
+        sb, s_prompt, n_new, max_len = SERVE_SHAPE
+        prompts = torch.randint(1, base.vocab, (sb, s_prompt), generator=gen,
+                                device=dev)
+        for name in ("float32", "bfloat16"):
+            cfg = base.with_(compute_dtype=name)
+            routes = {"kernel": model.cast_params(cfg, packed),
+                      "dense": model.cast_params(cfg, dense)}
+            res[name] = model_prefill(cfg, routes, tokens, n_mlp, card, log)
+            res[name].update(model_serve(cfg, routes, prompts, n_new,
+                                         max_len, n_mlp, card, log))
+            del routes
+            torch.cuda.empty_cache()
+    return res
+
+
+def model_prefill(cfg, routes, tokens, n_mlp, card, log) -> dict:
+    """``forward`` at PREFILL_SHAPE on the kernel route (exactly ``n_mlp``
+    tensor-core launches), against the plain route within MODEL_TOL; a
+    zeroed ``w2_scale`` must fail that check; tokens/s of the kernel,
+    plain and dense routes."""
+    import torch
+    from repro_torch.models import mlp, model
+    name = cfg.compute_dtype
+    tol = MODEL_TOL[name]
+    batch = {"tokens": tokens}
+    params = routes["kernel"]
+
+    def fwd(p, plain=False):
+        if plain:
+            with mlp.plain_packed_mlp():
+                return model.forward(cfg, p, batch)
+        return model.forward(cfg, p, batch)
+
+    before = matmul_launches()
+    got = fwd(params)
+    moved = matmul_launches_since(before)
+    check(moved == {"ternary_matmul": 0, "ternary_matmul_tc": n_mlp},
+          f"prefill {name}: launches {moved}, expected {n_mlp} "
+          f"ternary_matmul_tc and no ternary_matmul")
+    want = fwd(params, plain=True)
+    check(tuple(got.shape) == (*tokens.shape, cfg.vocab)
+          and bool(torch.isfinite(got).all()), f"prefill {name}: bad "
+                                                f"logits")
+    err, worst = rel_err(got, want, tol)
+    faults = {layer: rel_err(fwd(with_zeroed_w2_scale(params, layer)),
+                             want, tol) for layer in FAULT_LAYERS}
+    d_err, d_worst = rel_err(fwd(routes["dense"]), want, tol)
+    n_tok = tokens.numel()
+    ms = {"kernel": event_ms(lambda: fwd(params), reps=3, inner=1),
+          "plain": event_ms(lambda: fwd(params, plain=True), reps=3,
+                            inner=1),
+          "dense": event_ms(lambda: fwd(routes["dense"]), reps=3, inner=1)}
+    res = {"prefill": {
+        "tokens": list(tokens.shape), "launches": moved, "tol": tol,
+        "max_abs_err": err, "worst_ratio": worst,
+        "faults": {layer: {"max_abs_err": e, "worst_ratio": r}
+                   for layer, (e, r) in faults.items()},
+        "dense": {"max_abs_err": d_err, "worst_ratio": d_worst},
+        "ms": ms, "tokens_per_s": {k: n_tok / (v / 1e3)
+                                   for k, v in ms.items()}}}
+    log(f"  prefill {name} B x S = {tokens.shape[0]} x {tokens.shape[1]} "
+        f"(M = {n_tok}): {moved['ternary_matmul_tc']} ternary_matmul_tc "
+        f"launches, logits vs plain route max_abs_err {err:.4e}, largest "
+        f"|y - want| / ({tol}·max|want| + {tol}·|want|) = {worst:.4f} "
+        f"(limit 1); zeroed w2_scale of layer "
+        + ", ".join(f"{layer}: {r:.3f}" for layer, (_, r) in faults.items())
+        + f" (layers {FAULT_GATES[name]} must exceed 1); dense route "
+        f"{d_worst:.4f}")
+    check(worst <= 1, f"prefill {name}: kernel route disagrees with the "
+                      f"plain route")
+    for layer in FAULT_GATES[name]:
+        check(faults[layer][1] > 1, f"prefill {name}: a zeroed w2_scale in "
+                                    f"layer {layer} passes the tolerance")
+    for route, v in ms.items():
+        log(f"  time prefill {name} {route} route {v:.3f} ms, "
+            f"{n_tok / (v / 1e3):.0f} tokens/s (CUDA events, median of 3), "
+            f"card {card}")
+    return res
+
+
+def model_serve(cfg, routes, prompts, n_new, max_len, n_mlp, card,
+                log) -> dict:
+    """The reference's serving recipe (``launch/serve.py`` defaults,
+    ``Engine.prefill_step`` / ``decode_step``): the prompt one token a step
+    through ``decode_step``, then greedy tokens, on the kernel route
+    (exactly ``n_mlp`` CUDA-core launches a step); the plain route teacher-
+    forced with its tokens, logits step for step within MODEL_TOL; the
+    dense route likewise, timed; in fp32, ``forward`` on the whole sequence
+    against every step's logits within DECODE_FWD_TOL."""
+    import torch
+    from repro_torch.models import mlp, model
+    name = cfg.compute_dtype
+    tol = MODEL_TOL[name]
+    b, s_prompt = prompts.shape
+    # the cache in the compute dtype: fp32 as in the reference's
+    # decode-against-forward test, bf16 as in its Engine
+    cache_dtype = torch.float32 if name == "float32" else torch.bfloat16
+    n_steps = s_prompt + n_new - 1
+
+    def serve(params, forced=None, plain=False):
+        cache = model.init_cache(cfg, b, max_len, dtype=cache_dtype,
+                                 device=prompts.device)
+        logits, out, step_ms, launches = [], [], [], []
+        tok = None
+        for pos in range(n_steps):
+            if pos < s_prompt:
+                inp = prompts[:, pos]
+            else:
+                inp = tok if forced is None else forced[:, pos - s_prompt]
+            torch.cuda.synchronize()
+            before = matmul_launches()
+            t0 = time.perf_counter()
+            if plain:
+                with mlp.plain_packed_mlp():
+                    lg, cache = model.decode_step(cfg, params, cache, inp,
+                                                  pos)
+            else:
+                lg, cache = model.decode_step(cfg, params, cache, inp, pos)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(matmul_launches_since(before))
+            logits.append(lg)
+            if pos >= s_prompt - 1:
+                tok = lg.argmax(dim=-1)
+                out.append(tok)
+        return (torch.stack(logits, 1), torch.stack(out, 1),
+                step_ms[s_prompt - 1:], launches)
+
+    logits, gen, kernel_ms, launches = serve(routes["kernel"])
+    want_moves = {"ternary_matmul": n_mlp, "ternary_matmul_tc": 0}
+    bad = [i for i, m in enumerate(launches) if m != want_moves]
+    check(not bad, f"serve {name}: steps {bad[:4]} launched "
+                   f"{launches[bad[0]] if bad else None}, expected "
+                   f"{want_moves} each")
+    check(tuple(gen.shape) == (b, n_new)
+          and bool(torch.isfinite(logits).all()),
+          f"serve {name}: bad output")
+    plain_logits, _, plain_ms, plain_moves = serve(routes["kernel"],
+                                                    forced=gen, plain=True)
+    check(all(m == {"ternary_matmul": 0, "ternary_matmul_tc": 0}
+              for m in plain_moves), f"serve {name}: plain route launched")
+    worst_steps = [rel_err(logits[:, i], plain_logits[:, i], tol)[1]
+                   for i in range(n_steps)]
+    err = float((logits.float() - plain_logits.float()).abs().max())
+    dense_logits, _, dense_ms, _ = serve(routes["dense"], forced=gen)
+    d_worst = max(rel_err(dense_logits[:, i], plain_logits[:, i], tol)[1]
+                  for i in range(n_steps))
+    agree = float((plain_logits[:, s_prompt - 1:].argmax(-1) == gen)
+                  .float().mean())
+    res = {"serve": {
+        "batch": b, "prompt": s_prompt, "new": n_new, "max_len": max_len,
+        "cache_dtype": str(cache_dtype).split(".")[1], "steps": n_steps,
+        "launches_per_step": want_moves, "tol": tol, "max_abs_err": err,
+        "worst_ratio": max(worst_steps), "dense_worst_ratio": d_worst,
+        "plain_greedy_agreement": agree,
+        "step_ms": {"kernel": kernel_ms, "plain": plain_ms,
+                    "dense": dense_ms},
+        "median_step_ms": {"kernel": statistics.median(kernel_ms),
+                           "plain": statistics.median(plain_ms),
+                           "dense": statistics.median(dense_ms)}}}
+    log(f"  serve {name}: batch {b}, {s_prompt}-token prompts one token a "
+        f"step, {n_new} greedy tokens, cache {max_len} x "
+        f"{res['serve']['cache_dtype']}: {n_steps} steps of {n_mlp} "
+        f"ternary_matmul launches; logits vs the plain route teacher-"
+        f"forced max_abs_err {err:.4e}, largest ratio {max(worst_steps):.4f}"
+        f" (limit 1); dense route {d_worst:.4f}; plain greedy picks the "
+        f"kernel route's token at {agree:.3f} of the steps")
+    check(max(worst_steps) <= 1, f"serve {name}: kernel route disagrees "
+                                 f"with the plain route")
+    # the device's time of one step alone: a CUDA graph of it, on a cache
+    # of its own (the step writes its slot in place)
+    tok = gen[:, -1]
+    device_ms = {}
+    for route in ("kernel", "dense"):
+        scratch = model.init_cache(cfg, b, max_len, dtype=cache_dtype,
+                                   device=prompts.device)
+        device_ms[route] = graph_ms(lambda: model.decode_step(
+            cfg, routes[route], scratch, tok, n_steps), reps=5, inner=2)
+    res["serve"]["step_device_ms"] = device_ms
+    scratch = model.init_cache(cfg, b, max_len, dtype=cache_dtype,
+                               device=prompts.device)
+    res["serve"]["step_profile"] = profile_step(lambda: model.decode_step(
+        cfg, routes["kernel"], scratch, tok, n_steps), name, card, log)
+    for route, v in res["serve"]["median_step_ms"].items():
+        dev_part = (f"; the device alone {device_ms[route]:.3f} ms (a CUDA "
+                    f"graph of the step), {100 * device_ms[route] / v:.1f} %"
+                    if route in device_ms else "")
+        log(f"  time decode {name} {route} route {v:.3f} ms per step "
+            f"(host clock around a synchronised step, median of "
+            f"{len(kernel_ms)}){dev_part}, batch {b}, card {card}")
+    if name == "float32":
+        seq = torch.cat([prompts, gen], dim=1)
+        before = matmul_launches()
+        fwd = model.forward(cfg, routes["kernel"], {"tokens": seq})
+        moved = matmul_launches_since(before)
+        d_err, d_worst = rel_err(logits, fwd[:, :n_steps], DECODE_FWD_TOL)
+        res["serve"]["decode_vs_forward"] = {
+            "tokens": list(seq.shape), "launches": moved,
+            "tol": DECODE_FWD_TOL, "max_abs_err": d_err,
+            "worst_ratio": d_worst}
+        log(f"  decode vs forward {name}: forward on {tuple(seq.shape)} "
+            f"({moved}) against the {n_steps} decode steps' logits, "
+            f"max_abs_err {d_err:.4e}, largest |y - want| / "
+            f"({DECODE_FWD_TOL}·max|want| + {DECODE_FWD_TOL}·|want|) = "
+            f"{d_worst:.4f} (limit 1)")
+        check(d_worst <= 1, "decode steps disagree with forward")
+    return res
+
+# ---------------------------------------------------------------------------
 # Phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -1487,6 +1824,57 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
     return rows_out
 
 
+def profile_step(step, name: str, card: str, log) -> dict:
+    """One decode step under ``torch.profiler``: the CUDA kernels it ran,
+    their device time and the five that took the most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages()
+            if r.device_type == DeviceType.CUDA]
+    top = sorted(rows, key=lambda r: -r.self_device_time_total)[:5]
+    out = {"kernels": sum(r.count for r in rows),
+           "device_ms": sum(r.self_device_time_total for r in rows) / 1e3,
+           "top": [{"name": r.key[:80], "count": r.count,
+                    "device_ms": r.self_device_time_total / 1e3}
+                   for r in top]}
+    log(f"  profile decode {name} kernel route: {out['kernels']} CUDA "
+        f"kernels, {out['device_ms']:.3f} ms of device time (torch.profiler"
+        f", one step), card {card}")
+    for r in out["top"]:
+        log(f"    {r['count']:5d} x {r['name']}: {r['device_ms']:.3f} ms")
+    return out
+
+
+def mlp_share(model_res: dict, times: list[dict], card: str, log) -> dict:
+    """The share of a kernel-route decode step that its packed-matmul
+    launches take: phase 4's CUDA-graph time of the routed kernel at
+    qwen3-0.6b's w1 and the serving batch (w3 has the same shape, w2 as
+    many words) times the launches per step, over the step's median."""
+    out = {}
+    m = SERVE_SHAPE[0]
+    for name in ("float32", "bfloat16"):
+        row = next(x for x in times if x["kernel"] == "ternary_matmul"
+                   and x.get("routed") and x["model"] == MODEL_ARCH
+                   and x["m"] == m and x["dtype"] == name)
+        serve = model_res[name]["serve"]
+        n = serve["launches_per_step"]["ternary_matmul"]
+        step = serve["median_step_ms"]["kernel"]
+        out[name] = {"kernel_device_ms": row["device_ms"], "launches": n,
+                     "step_ms": step, "share": n * row["device_ms"] / step}
+        log(f"  decode {name}: {n} x {row['device_ms']:.6f} ms of "
+            f"ternary_matmul (graph, M = {m}) = "
+            f"{n * row['device_ms']:.4f} ms of a {step:.3f} ms step "
+            f"({100 * out[name]['share']:.2f} %), card {card}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1580,12 +1968,21 @@ def main() -> int:
             "array pool and graph runtime",
             lambda dev, log: phase_pool_path(dev, card, log),
             ("tap_run_program",))
+        log("[main path: qwen3-0.6b at full width, model stack]")
+        report["model_path"] = main_path(
+            "qwen3-0.6b model",
+            lambda dev, log: phase_model_path(dev, card, log),
+            ("ternary_matmul", "ternary_matmul_tc"))
+        log(f"  phase 3d took {report['model_path']['seconds']:.3f} s")
         launches = {k: sum(report[p]["launches"][k] for p in (
-            "main_path", "matmul_path", "pool_path")) for k in KERNELS}
+            "main_path", "matmul_path", "pool_path", "model_path"))
+            for k in KERNELS}
 
         log("[times]")
         report["times"] = phase_times(dev, card, log)
         report["times"] += phase_matmul_times(dev, card, log)
+        report["model_path"]["mlp_share"] = mlp_share(
+            report["model_path"], report["times"], card, log)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,0 +1,21 @@
+"""yi-34b [dense] — llama-architecture GQA [arXiv:2403.04652]:
+60L, d_model=7168, 56H (GQA kv=8, head_dim=128), d_ff=20480, vocab=64000."""
+from .base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="yi-34b", family="dense",
+        n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8, head_dim=128,
+        d_ff=20480, vocab=64000,
+        rope_theta=5_000_000.0,
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="yi-34b-smoke", family="dense",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab=256,
+        remat="none",
+    )

@@ -6,7 +6,8 @@ schedule tensors, and :func:`ap_stats_from_fields` rebuilds an
 :class:`APStats` from the reference's fields: the two are what a test needs
 to run the same program through both executors and compare the results.
 :func:`packed_mlp_from_arrays` carries packed ternary MLP weights across,
-so both packages multiply by the same words and scales.
+so both packages multiply by the same words and scales, and
+:func:`params_from_arrays` a whole model's parameter tree.
 """
 from __future__ import annotations
 
@@ -69,3 +70,28 @@ def packed_mlp_from_arrays(params: dict, device=None) -> dict:
         out[key] = torch.from_numpy(np.array(val)).to(
             device=dev, dtype=dtype)
     return out
+
+
+def params_from_arrays(tree: dict, device=None) -> dict:
+    """The reference's ``init_params`` tree as the port's tensors.
+
+    ``tree`` is the nested dict, each leaf converted to numpy by the caller
+    (bf16 leaves through fp32).  int32 leaves (packed words) stay int32,
+    floating leaves become fp32 tensors, on ``device`` (``None`` =
+    ``cuda:0``).  The port's :func:`~repro_torch.models.model.init_params`
+    makes the same tree.
+    """
+    dev = resolve_device(device)
+
+    def leaf(val):
+        arr = np.asarray(val)
+        if arr.dtype == np.int32:
+            dtype = torch.int32
+        elif np.issubdtype(arr.dtype, np.floating):
+            arr, dtype = arr.astype(np.float32), torch.float32
+        else:
+            raise TypeError(f"params_from_arrays: leaf of dtype {arr.dtype}")
+        return torch.from_numpy(np.array(arr)).to(device=dev, dtype=dtype)
+
+    return {k: params_from_arrays(v, dev) if isinstance(v, dict) else leaf(v)
+            for k, v in tree.items()}

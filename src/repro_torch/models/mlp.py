@@ -1,0 +1,86 @@
+"""Dense SwiGLU MLP + the ternary-quantized linear path (paper technique).
+
+The ternary path (TernaryCfg.enabled / qat) fake-quantizes balanced-ternary
+weights with a per-channel absmean scale (straight-through in training).
+Packed serving weights (``w1_packed`` ..., :mod:`.quant`) run through the
+packed-ternary CUDA kernels on CUDA tensors
+(:func:`~repro_torch.kernels.ternary_matmul.ops.ternary_matmul_op`: the
+tensor cores from 16 rows, the CUDA cores below) and through the plain
+:func:`.quant.unpack_matmul` on CPU tensors.  The AP-served branch
+(``mlp_ap``) comes with AP-backed serving, ROADMAP queue 1, item 9.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+import torch
+
+from ..kernels.ternary_matmul.ops import ternary_matmul_op
+from ..kernels.ternary_matmul.ref import quantize_ternary
+from .common import act_fn, dense_init
+from .quant import unpack_matmul
+
+_PLAIN_PACKED = contextvars.ContextVar("plain_packed_mlp", default=False)
+
+
+@contextlib.contextmanager
+def plain_packed_mlp():
+    """Inside, the packed branch runs :func:`.quant.unpack_matmul` on any
+    device: the plain route that tests and ``chip_smoke.py`` hold the
+    kernel route against on the card."""
+    token = _PLAIN_PACKED.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_PACKED.reset(token)
+
+
+def packed_matmul(x: torch.Tensor, packed: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """y = (x @ unpack(packed)) * scale over x's last axis: the CUDA kernel
+    for a CUDA x, else (or under :func:`plain_packed_mlp`) the plain
+    version.  A failed launch raises."""
+    if not x.is_cuda or _PLAIN_PACKED.get():
+        return unpack_matmul(x, packed, scale)
+    lead = x.shape[:-1]
+    y = ternary_matmul_op(x.reshape(-1, x.shape[-1]), packed, scale)
+    return y.reshape(*lead, y.shape[-1])
+
+
+def ternary_linear(x: torch.Tensor, w: torch.Tensor,
+                   qat: bool) -> torch.Tensor:
+    """y = x @ ternarize(w), STE in training (qat) or fake-quant inference."""
+    w_ter, scale = quantize_ternary(w.to(torch.float32))
+    w_q = (w_ter.to(torch.float32) * scale[None, :]).to(w.dtype)
+    if qat:
+        # straight-through: forward w_q, gradient flows to w
+        w_q = w + (w_q - w).detach()
+    return x @ w_q
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, ternary: bool = False,
+           qat: bool = False) -> torch.Tensor:
+    if ternary:
+        return ternary_linear(x, w, qat)
+    return x @ w
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+             dtype=torch.float32) -> dict:
+    return {
+        "w1": dense_init(gen, (d_model, d_ff), 0, dtype),   # gate
+        "w3": dense_init(gen, (d_model, d_ff), 0, dtype),   # up
+        "w2": dense_init(gen, (d_ff, d_model), 0, dtype),   # down
+    }
+
+
+def mlp(p: dict, x: torch.Tensor, act: str = "silu", ternary: bool = False,
+        qat: bool = False) -> torch.Tensor:
+    if "w1_packed" in p:                     # packed ternary serving weights
+        h = act_fn(act)(packed_matmul(x, p["w1_packed"], p["w1_scale"])) \
+            * packed_matmul(x, p["w3_packed"], p["w3_scale"])
+        return packed_matmul(h, p["w2_packed"], p["w2_scale"])
+    h = act_fn(act)(linear(x, p["w1"], ternary, qat)) \
+        * linear(x, p["w3"], ternary, qat)
+    return linear(h, p["w2"], ternary, qat)

@@ -1,0 +1,259 @@
+"""Top-level LM: embedding -> layer stack -> head, + the serve paths.
+
+The parameter tree is the reference's: the layer stack lives under
+``stack/pos_i`` (one entry per position of the config's layer pattern,
+each leaf with a leading axis of ``n_sb`` super-blocks), layers that do not
+fill a whole super-block under ``rest_j``, an encoder under ``enc_stack`` /
+``enc_norm``.  Here the stack is a Python loop over that leading axis.
+
+The reference casts every block's float leaves and the embedding table to
+the compute dtype inside each call, where XLA fuses the casts.  Eagerly on
+the card that would re-read every fp32 weight at every step, so the port
+casts once: :func:`cast_params` after loading, and :func:`forward` /
+:func:`decode_step` take the cast tree (and refuse another).  Callers run
+them under ``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from . import blocks as blk
+from .common import dtype_of, embed_init, dense_init, rms_norm
+
+Params = dict
+
+
+# ---------------------------------------------------------------------------
+# Structure helpers
+# ---------------------------------------------------------------------------
+
+def _layer_plan(cfg: ModelConfig) -> tuple[int, list[tuple[str, str]], int]:
+    """(n_superblocks, pattern [(mixer, ffn)] , n_rest_layers)."""
+    period = cfg.pattern_period
+    pattern = [(cfg.mixer_at(i), cfg.ffn_at(i)) for i in range(period)]
+    n_sb = cfg.n_layers // period
+    n_rest = cfg.n_layers - n_sb * period
+    return n_sb, pattern, n_rest
+
+
+def _tree_map(fn, tree: dict, path: str = "") -> dict:
+    """``fn(leaf, path)`` over a nested dict, '/'-joined paths."""
+    return {k: _tree_map(fn, v, f"{path}{k}/") if isinstance(v, dict)
+            else fn(v, f"{path}{k}") for k, v in tree.items()}
+
+
+def _stack(trees: list[dict]) -> dict:
+    """Identical trees -> one tree whose leaves carry a leading axis."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The inverse of :func:`_stack`, as views (writes reach the stack)."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Init and the one cast
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+    """Random weights from ``seed`` in the reference's tree, in
+    ``cfg.param_dtype`` on ``device`` (``None`` = ``cuda:0``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dtype = dtype_of(cfg.param_dtype)
+    n_sb, pattern, n_rest = _layer_plan(cfg)
+    cross = cfg.enc_layers > 0
+    params: Params = {
+        "embed": {"table": embed_init(gen, (cfg.vocab, cfg.d_model), dtype)},
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": dense_init(
+            gen, (cfg.d_model, cfg.vocab), 0, dtype)}
+
+    def make_stacked(kinds: tuple[str, str], n: int, use_cross: bool):
+        return _stack([blk.init_block(gen, cfg, kinds[0], kinds[1],
+                                      cross=use_cross, dtype=dtype)
+                       for _ in range(n)])
+
+    if n_sb > 0:
+        params["stack"] = {f"pos_{i}": make_stacked(kinds, n_sb, cross)
+                           for i, kinds in enumerate(pattern)}
+    for j in range(n_rest):
+        kinds = pattern[j % len(pattern)]
+        params[f"rest_{j}"] = blk.init_block(gen, cfg, kinds[0], kinds[1],
+                                             cross=cross, dtype=dtype)
+    if cfg.enc_layers:
+        params["enc_stack"] = {"pos_0": make_stacked(
+            ("attn", "mlp"), cfg.enc_layers, False)}
+        params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                        device=dev)
+    return params
+
+
+def _cast_dtype(leaf: torch.Tensor, path: str, cdt: torch.dtype):
+    """What :func:`cast_params` makes of a floating leaf: the compute dtype,
+    except the packed MLP's ``*_scale``, which is rounded through it and
+    kept fp32 for the kernel.  None for integer leaves (kept as they are)."""
+    if not leaf.is_floating_point():
+        return None
+    return torch.float32 if path.endswith("_scale") else cdt
+
+
+def cast_params(cfg: ModelConfig, params: Params) -> Params:
+    """Every floating leaf in the compute dtype, as the reference's per-call
+    casts leave them (packed ``*_scale`` rounded to it and held in fp32);
+    integer leaves (packed words) untouched, in ``rest_j`` layers too."""
+    cdt = dtype_of(cfg.compute_dtype)
+
+    def cast(leaf, path):
+        want = _cast_dtype(leaf, path, cdt)
+        if want is None:
+            return leaf
+        return leaf.to(cdt).to(want)
+    return _tree_map(cast, params)
+
+
+def _check_cast(cfg: ModelConfig, params: Params) -> None:
+    cdt = dtype_of(cfg.compute_dtype)
+
+    def check(leaf, path):
+        want = _cast_dtype(leaf, path, cdt)
+        if want is not None and leaf.dtype != want:
+            raise ValueError(f"param {path} is {leaf.dtype}, not {want}: "
+                             f"pass the tree through cast_params(cfg, ...)")
+    _tree_map(check, params)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                 embeds: torch.Tensor | None) -> torch.Tensor:
+    cdt = dtype_of(cfg.compute_dtype)
+    table = params["embed"]["table"]
+    x = table[tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=x.device)
+    if embeds is not None:                       # vlm/audio frontend stub
+        x = torch.cat([embeds.to(cdt), x], dim=1)
+    return x
+
+
+def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, positions,
+               causal: bool, enc_out=None, prefix: str = "") -> torch.Tensor:
+    """The (prefix-named) stacked blocks, then the remainder blocks."""
+    n_sb, pattern, n_rest = _layer_plan(cfg)
+    if prefix == "enc_":
+        n_sb, pattern, n_rest = cfg.enc_layers, [("attn", "mlp")], 0
+    stack_key = prefix + "stack"
+    if stack_key in params and n_sb > 0:
+        per_pos = [_unstack(params[stack_key][f"pos_{i}"], n_sb)
+                   for i in range(len(pattern))]
+        for sb in range(n_sb):
+            for i, (mk, fk) in enumerate(pattern):
+                x = blk.block_forward(per_pos[i][sb], x, cfg, mk, fk,
+                                      positions, causal=causal,
+                                      enc_out=enc_out)
+    for j in range(n_rest):
+        mk, fk = pattern[j % len(pattern)]
+        x = blk.block_forward(params[f"rest_{j}"], x, cfg, mk, fk,
+                              positions, causal=causal, enc_out=enc_out)
+    return x
+
+
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor):
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["table"].T
+    return x @ params["lm_head"]["w"]
+
+
+def forward(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
+    """batch: tokens [B, S_tok], optional embeds [B, n_front, d], optional
+    enc_tokens/enc_embeds for enc-dec.  ``params`` from
+    :func:`cast_params`.  Returns logits [B, S, V] in the compute dtype."""
+    _check_cast(cfg, params)
+    cdt = dtype_of(cfg.compute_dtype)
+    x = embed_tokens(cfg, params, batch["tokens"], batch.get("embeds"))
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+
+    enc_out = None
+    if cfg.enc_layers:
+        enc_in = batch.get("enc_embeds")
+        if enc_in is None:
+            enc_in = params["embed"]["table"][batch["enc_tokens"]]
+        e_pos = torch.arange(enc_in.shape[1], device=x.device)[None, :] \
+            .expand(*enc_in.shape[:2])
+        enc_out = _run_stack(cfg, params, enc_in.to(cdt), e_pos,
+                             causal=False, prefix="enc_")
+        enc_out = rms_norm(enc_out, params["enc_norm"], cfg.norm_eps)
+
+    x = _run_stack(cfg, params, x, positions, causal=True, enc_out=enc_out)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init + decode step
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               cross_len: int = 0, dtype=torch.bfloat16,
+               device=None) -> dict:
+    """Zeroed decode state for ``batch`` sequences of up to ``seq_len``
+    tokens, on ``device`` (``None`` = ``cuda:0``).  KV entries are ``dtype``
+    (bf16 by default, under fp32 compute too, as in the reference); mamba
+    state is fp32."""
+    dev = resolve_device(device)
+    n_sb, pattern, n_rest = _layer_plan(cfg)
+    cross_len = cross_len if cfg.enc_layers else 0
+
+    cache: dict = {}
+    if n_sb > 0:
+        cache["stack"] = {f"pos_{i}": _stack([blk.init_block_cache(
+            cfg, mk, batch, seq_len, cross_len, dtype, dev)
+            for _ in range(n_sb)]) for i, (mk, _) in enumerate(pattern)}
+    for j in range(n_rest):
+        mk, _ = pattern[j % len(pattern)]
+        cache[f"rest_{j}"] = blk.init_block_cache(cfg, mk, batch, seq_len,
+                                                  cross_len, dtype, dev)
+    return cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: dict,
+                tokens: torch.Tensor, pos: int
+                ) -> tuple[torch.Tensor, dict]:
+    """One decode step: tokens [B] int, ``pos`` an int -> (logits [B, V],
+    cache).  ``params`` from :func:`cast_params`; ``cache`` (from
+    :func:`init_cache`) is updated in place and returned."""
+    _check_cast(cfg, params)
+    pos = int(pos)
+    n_sb, pattern, n_rest = _layer_plan(cfg)
+    x = embed_tokens(cfg, params, tokens, None)[:, None, :]
+    if n_sb > 0:
+        per_pos = [(_unstack(params["stack"][f"pos_{i}"], n_sb),
+                    _unstack(cache["stack"][f"pos_{i}"], n_sb))
+                   for i in range(len(pattern))]
+        for sb in range(n_sb):
+            for i, (mk, fk) in enumerate(pattern):
+                p_i, c_i = per_pos[i]
+                x = blk.block_decode(p_i[sb], x, c_i[sb], cfg, mk, fk, pos)
+    for j in range(n_rest):
+        mk, fk = pattern[j % len(pattern)]
+        x = blk.block_decode(params[f"rest_{j}"], x, cache[f"rest_{j}"],
+                             cfg, mk, fk, pos)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(cfg, params, x[:, 0]), cache

@@ -659,3 +659,72 @@ def test_packed_matmul_at_k8192(dev, qwen2_72b_w1, m, dtype, kname):
                        device=dev).to(dtype)
     assert torch.equal(launch(xi, packed, scale),
                        ternary_matmul_ref(xi, packed, scale))
+
+
+# ---------------------------------------------------------------------------
+# The model stack with packed MLPs: the kernel route against the plain one
+# ---------------------------------------------------------------------------
+
+def _packed_qwen3_wide(dev, dtype):
+    """qwen3-0.6b's smoke family at d_model 256, d_ff 768, packed MLPs."""
+    from repro_torch import configs
+    from repro_torch.models import model, quant
+    cfg = configs.get_smoke_config("qwen3-0.6b").with_(
+        d_model=256, d_ff=768, compute_dtype=dtype)
+    params = quant.quantize_model_params(model.init_params(cfg, seed=0,
+                                                           device=dev))
+    return cfg, model.cast_params(cfg, params)
+
+
+def _launches(tk, fn):
+    before = dict(tk.launch_counts)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in tk.launch_counts.items()}
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 5e-2)])
+def test_packed_model_kernel_route_matches_plain(dev, dtype, tol):
+    """forward at 2 x 16 tokens (M = 32: the tensor cores) and a decode step
+    at batch 2 (the CUDA cores), 3 launches per layer each, against
+    ``plain_packed_mlp()`` on the same params (allclose, atol = rtol)."""
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.models import mlp, model
+    cfg, params = _packed_qwen3_wide(dev, dtype)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 16))).to(dev)
+    n = 3 * cfg.n_layers
+    with torch.inference_mode():
+        got, moved = _launches(tk, lambda: model.forward(
+            cfg, params, {"tokens": toks}))
+        assert moved == {"ternary_matmul": 0, "ternary_matmul_tc": n}
+        with mlp.plain_packed_mlp():
+            want = model.forward(cfg, params, {"tokens": toks})
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        caches = [model.init_cache(cfg, 2, 32, device=dev) for _ in "ab"]
+        for pos in range(3):
+            (got, _), moved = _launches(tk, lambda: model.decode_step(
+                cfg, params, caches[0], toks[:, pos], pos))
+            assert moved == {"ternary_matmul": n, "ternary_matmul_tc": 0}
+            with mlp.plain_packed_mlp():
+                want, _ = model.decode_step(cfg, params, caches[1],
+                                            toks[:, pos], pos)
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+
+
+def test_plain_packed_mlp_launches_nothing(dev):
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.models import mlp, model
+    cfg, params = _packed_qwen3_wide(dev, "bfloat16")
+    toks = torch.zeros((2, 16), dtype=torch.long, device=dev)
+    with torch.inference_mode(), mlp.plain_packed_mlp():
+        _, moved = _launches(tk, lambda: model.forward(
+            cfg, params, {"tokens": toks}))
+        cache = model.init_cache(cfg, 2, 32, device=dev)
+        _, moved_dec = _launches(tk, lambda: model.decode_step(
+            cfg, params, cache, toks[:, 0], 0))
+    assert moved == moved_dec == {"ternary_matmul": 0,
+                                  "ternary_matmul_tc": 0}

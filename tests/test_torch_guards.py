@@ -14,7 +14,9 @@ import torch
 from repro_torch import apc
 from repro_torch.core import ap, build_lut_nonblocked
 from repro_torch.core import truth_tables as tt
+from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.tap_pass import kernel, ops
+from repro_torch.models import model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -28,7 +30,8 @@ def _forbidden(name: str) -> bool:
 
 def test_import_loads_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.apc, repro_torch.convert, "
-            "repro_torch.kernels.tap_pass; "
+            "repro_torch.kernels.tap_pass, repro_torch.configs, "
+            "repro_torch.models.model; "
             "bad = [m for m in sys.modules if m.split('.')[0] == 'repro' "
             "or m.split('.')[0].startswith('jax')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -69,7 +72,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
              lambda: apc.DevicePool(None, n_arrays=1, rows=8, cols=9),
              lambda: apc.DevicePool([None], n_arrays=1, rows=8, cols=9),
              lambda: apc.execute_sharded(arr, compiled, [None, None]),
-             lambda: apc.run(arr, compiled, mesh=[None])]
+             lambda: apc.run(arr, compiled, mesh=[None]),
+             lambda: model.init_params(get_smoke_config("qwen3-0.6b")),
+             lambda: model.init_cache(get_smoke_config("qwen3-0.6b"), 1, 8)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
