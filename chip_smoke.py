@@ -80,6 +80,22 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
       model (the same weights unpacked, ``torch.matmul`` in the MLPs);
       after phase 4, the share of a decode step that its 84 matmul
       kernels take.
+   e. AP-backed serving (``repro_torch.serve``): the same qwen3-0.6b in
+      fp32 at all 28 layers, every MLP projection on the AP through
+      ``APServeContext(Runtime(ArrayPool(4, 4096, 650)), x_levels=7)``
+      (one program-kernel launch per graph node).  ``Engine.generate`` of
+      two requests (2-token prompts, 2 new tokens): every step's logits
+      bit-identical to the same engine under ``plain_ap_projections()``,
+      56 graphs a model step, one launch per graph node, no packed-matmul
+      launch; the ``BatchServer`` on the same requests, tokens and
+      ``APStats`` equal to the sequential run; waves of 1 and 4 one-token
+      requests; a plain replay of a solo reduction launch and a merged
+      (``block_valid``) tile launch; qwen3-moe's smoke config at the CPU
+      tests' widths through ``ap_moe_dispatch`` on the card against the
+      CPU; the engine's float route at ``launch/serve.py``'s defaults
+      against a ``decode_step`` loop (84 ``ternary_matmul`` a step).  Host
+      ms, program-kernel ms (CUDA events around each launch), ``APLinear``
+      build ms, launches, cycles, Table XI energy and makespan per step.
 4. Times: CUDA-event medians of each kernel, its plain version and, for the
    matmul, the library product on a dense weight, beside each kernel's
    bound, at the main paths' shapes (and qwen2-72b's MLP width for the
@@ -204,6 +220,20 @@ DECODE_FWD_TOL = 1e-5
 # bf16 tolerance, where kernel against plain reads 0.3 of it
 FAULT_LAYERS = (0, 14)
 FAULT_GATES = {"float32": (0, 14), "bfloat16": (0,)}
+# phase 3e: qwen3-0.6b fp32 at its published width and depth, every MLP
+# projection on the AP: the pool of phase 3c and the reference's x_levels;
+# requests cut short (a model step is thousands of program launches):
+# AP_SERVE_N_SEQ requests of (prompt tokens, new tokens), a cache of
+# AP_SERVE_MAX_LEN; the MoE check's pool is the CPU tests' tiny one
+AP_SERVE_POOL = POOL_MAC
+AP_SERVE_X_LEVELS = 7
+AP_SERVE_REQUEST = (2, 2)
+AP_SERVE_N_SEQ = 2
+AP_SERVE_MAX_LEN = 8
+AP_SERVE_MOE_POOL = (4, 64, 64)
+# fewer slots than a MAC tile program at 650 columns has (24329 at K = 64):
+# a fold (reduction) program, 2850 slots for w1's 16 partials
+MAC_TILE_MIN_SLOTS = 5000
 # ternary-matmul timings: (model, K, N, M), K x N the model's w1
 MATMUL_TIMES = tuple(("qwen3-0.6b", *QWEN3_06B, m)
                     for m in (1, 4, 8, 16, 2048)) + \
@@ -1496,6 +1526,525 @@ def model_serve(cfg, routes, prompts, n_new, max_len, n_mlp, card,
     return res
 
 # ---------------------------------------------------------------------------
+# Phase 3e: AP-backed serving of qwen3-0.6b through the program kernel
+# ---------------------------------------------------------------------------
+
+class APProbe:
+    """Instruments phase 3e without touching the port: CUDA events around
+    every program-kernel launch of the array pool (the kernel's device
+    time: the queue stays full while the host enqueues, so an event pair
+    brackets one launch's own work), and the host time of every
+    ``APServeContext.linear`` call (an ``APLinear`` built again: unpack,
+    host copy, support, digest, pin), each taken after a synchronize so
+    that it holds host work only."""
+
+    def __init__(self, dev):
+        import threading
+        import torch
+        from repro_torch.apc import layers, pool as pool_mod
+        self.dev = dev
+        self.lock = threading.Lock()
+        self.events: list = []
+        self.builds: list = []
+        # the first launch of each kind, for a replay by the plain version:
+        # "solo reduction" (one request's first fold node, the cheaper
+        # replay) and "merged" (a wave's, block_valid: a tile program)
+        self.kept: dict[str, tuple] = {}
+        self._pool_mod, self._layers = pool_mod, layers
+        self._launch = pool_mod.tap_run_program
+        self._linear = layers.APServeContext.linear
+        probe = self
+
+        def launch(padded, *a, **kw):
+            if kw.get("block_valid") is not None:
+                kind = "merged"
+            elif a[0].shape[0] < MAC_TILE_MIN_SLOTS:
+                kind = "solo reduction"
+            else:
+                kind = None
+            keep = kind is not None and kind not in probe.kept
+            before = padded.clone() if keep else None
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = probe._launch(padded, *a, **kw)
+            end.record()
+            with probe.lock:
+                probe.events.append((start, end))
+                if keep:
+                    probe.kept[kind] = (before, a, kw, *out)
+            return out
+
+        def linear(ctx, *a, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = probe._linear(ctx, *a, **kw)
+            t1 = time.perf_counter()
+            with probe.lock:
+                probe.builds.append((t0, t1))
+            return out
+
+        pool_mod.tap_run_program = launch
+        layers.APServeContext.linear = linear
+
+    def take(self) -> dict:
+        """Since the last take: program-kernel launches and their device
+        ms (synchronizes), ``APLinear`` builds, the host ms they took
+        summed over threads, and the wall ms of their union (threads of a
+        wave build at once)."""
+        import torch
+        torch.cuda.synchronize(self.dev)
+        with self.lock:
+            events, self.events = self.events, []
+            builds, self.builds = sorted(self.builds), []
+        wall, end = 0.0, None
+        for t0, t1 in builds:
+            if end is None or t0 > end:
+                wall += t1 - t0
+                end = t1
+            elif t1 > end:
+                wall += t1 - end
+                end = t1
+        return {"launches": len(events),
+                "kernel_ms": sum(s.elapsed_time(e) for s, e in events),
+                "rebuilds": len(builds),
+                "rebuild_ms": 1e3 * sum(t1 - t0 for t0, t1 in builds),
+                "rebuild_wall_ms": 1e3 * wall}
+
+    def close(self) -> None:
+        self._pool_mod.tap_run_program = self._launch
+        self._layers.APServeContext.linear = self._linear
+
+    def replay_kept(self, card: str, log) -> dict:
+        """The kept launches replayed by the plain version on the card:
+        digits and counter rows equal (tolerance: none)."""
+        import torch
+        from repro_torch.kernels.tap_pass import ref
+        res = {}
+        for kind, (before, args, kw, out, counts) in self.kept.items():
+            t0 = time.perf_counter()
+            want, want_counts = ref.run_program_plain(before, *args, **kw)
+            torch.cuda.synchronize(self.dev)
+            e = max(int((out.int() - want.int()).abs().max()),
+                    int((counts.long() - want_counts.long()).abs().max()))
+            bv = kw.get("block_valid")
+            res[kind] = {"rows": before.shape[0], "cols": before.shape[1],
+                         "slots": args[0].shape[0],
+                         "block_valid": (None if bv is None
+                                         else bv.tolist()),
+                         "max_abs_err": e,
+                         "plain_s": time.perf_counter() - t0}
+            log(f"  the first {kind} program launch of AP serving "
+                f"({before.shape[0]} rows, {before.shape[1]} columns, "
+                f"{args[0].shape[0]} slots, block_valid "
+                f"{res[kind]['block_valid']}) replayed by the plain version"
+                f" in {res[kind]['plain_s']:.3f} s (card {card}): digits and "
+                f"{counts.shape[0]} counter rows max_abs_err={e}")
+            check(e == 0, f"AP serving: the {kind} program launch "
+                          f"disagrees with the plain version")
+        check(set(res) == {"solo reduction", "merged"},
+              f"AP serving kept launches {sorted(res)}")
+        return res
+
+
+def ap_engine(cfg, params, dev, pool=None, max_len=None):
+    """An AP-backed Engine on ``dev``: ArrayPool ``pool`` (default
+    AP_SERVE_POOL), x_levels AP_SERVE_X_LEVELS."""
+    from repro_torch import apc
+    from repro_torch.serve import Engine, ServeCfg
+    pool = AP_SERVE_POOL if pool is None else pool
+    ctx = apc.APServeContext(apc.Runtime(apc.ArrayPool(*pool, device=dev)),
+                             x_levels=AP_SERVE_X_LEVELS)
+    return Engine(cfg, params, ServeCfg(
+        max_len=AP_SERVE_MAX_LEN if max_len is None else max_len),
+        ap_ctx=ctx, device=dev)
+
+
+def record_steps(eng, rec: list, probe: APProbe | None = None):
+    """Wrap ``eng._step``: each model step synchronized, its host ms, the
+    probe's reading, the packed-matmul launches it made and its logits
+    appended to ``rec``.  Returns the original step."""
+    import torch
+    orig = eng._step
+
+    def step(*a):
+        if probe is not None:
+            probe.take()
+        before = matmul_launches()
+        torch.cuda.synchronize(eng.device)
+        t0 = time.perf_counter()
+        logits, cache = orig(*a)
+        torch.cuda.synchronize(eng.device)
+        host = 1e3 * (time.perf_counter() - t0)
+        rec.append(dict(probe.take() if probe is not None else {},
+                        host_ms=host, logits=logits.clone(),
+                        matmul=matmul_launches_since(before)))
+        return logits, cache
+
+    eng._step = step
+    return orig
+
+
+def record_waves(srv, probe, rec: list) -> None:
+    """Wrap a BatchServer's ``_run_wave`` (before any submit): each wave's
+    width, host ms and the probe's reading appended to ``rec``."""
+    orig = srv._run_wave
+
+    def run_wave(reg):
+        width = sum(not a.request.done for a in srv._active)
+        probe.take()
+        t0 = time.perf_counter()
+        orig(reg)
+        rec.append(dict(probe.take(), width=width,
+                        host_ms=1e3 * (time.perf_counter() - t0)))
+
+    srv._run_wave = run_wave
+
+
+def phase_ap_serve_path(dev, card: str, log) -> dict:
+    """qwen3-0.6b at its published width and depth with every MLP
+    projection on the AP: the program kernel over the pool of phase 3c,
+    sequential and batched, held against ``plain_ap_projections()`` bit for
+    bit; the batched route against the sequential; a wave of four; MoE
+    dispatch on the card against the CPU; the same engine's float route."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model, quant
+
+    cfg = get_config(MODEL_ARCH).with_(compute_dtype="float32")
+    n_graphs_step = 2 * cfg.n_layers
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(SEED + 11)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = model.cast_params(cfg, quant.quantize_model_params(
+            model.init_params(cfg, seed=SEED, device=dev)))
+    torch.cuda.synchronize()
+    res: dict = {"arch": MODEL_ARCH, "card": card, "pool": AP_SERVE_POOL,
+                 "x_levels": AP_SERVE_X_LEVELS,
+                 "setup_s": time.perf_counter() - t0}
+    s_prompt, n_new = AP_SERVE_REQUEST
+    n_steps = s_prompt + n_new - 1
+    prompts = [torch.randint(1, cfg.vocab, (1, s_prompt), generator=gen)
+               .numpy().astype(np.int32) for _ in range(AP_SERVE_N_SEQ)]
+    log(f"  {MODEL_ARCH} fp32, {cfg.n_layers} layers, d_model {cfg.d_model},"
+        f" d_ff {cfg.d_ff}, packed MLPs from seed {SEED}; every MLP "
+        f"projection on the AP: ArrayPool{AP_SERVE_POOL}, x_levels "
+        f"{AP_SERVE_X_LEVELS}; {AP_SERVE_N_SEQ} requests of a {s_prompt}-"
+        f"token prompt and {n_new} new tokens ({n_steps} model steps each)")
+    probe = APProbe(dev)
+    try:
+        eng = ap_engine(cfg, params, dev)
+        res["sequential"] = ap_sequential(eng, probe, prompts, n_new,
+                                          n_graphs_step, card, log)
+        res["batched"] = ap_batched(eng, probe, prompts, n_new,
+                                    res["sequential"], card, log)
+        res["wave1"] = ap_wave(eng, probe, gen, 1, n_graphs_step, card,
+                               log)
+        res["wave4"] = ap_wave(eng, probe, gen, 4, n_graphs_step, card,
+                               log)
+    finally:
+        probe.close()
+    res["plain_replay"] = probe.replay_kept(card, log)
+    res["wave_width"] = ap_wave_table(res, card, log)
+    res["moe"] = ap_moe_card_vs_cpu(dev, card, log)
+    res["float_route"] = float_route(cfg, params, dev, card, log)
+    return res
+
+
+def ap_sequential(eng, probe, prompts, n_new, n_graphs_step, card,
+                  log) -> dict:
+    """Engine.generate per request on the AP route, then again under
+    plain_ap_projections(): every step's logits bit-identical, 2 graphs a
+    layer a step, one program-kernel launch per graph node, no
+    packed-matmul launch."""
+    import torch
+    from repro_torch.apc.layers import plain_ap_projections
+    from repro_torch.kernels.tap_pass import kernel
+    out = {"requests": []}
+    for i, prompt in enumerate(prompts):
+        steps: list = []
+        orig = record_steps(eng, steps, probe)
+        launches0 = kernel.launch_counts["tap_run_program"]
+        t0 = time.perf_counter()
+        toks = eng.generate(prompt, n_new)
+        wall = time.perf_counter() - t0
+        launched = kernel.launch_counts["tap_run_program"] - launches0
+        rep = eng.ap_report()
+        plain: list = []
+        eng._step = orig
+        record_steps(eng, plain, probe)
+        with plain_ap_projections():
+            plain_toks = eng.generate(prompt, n_new)
+        eng._step = orig
+        n_steps = len(steps)
+        same = [bool(torch.equal(a["logits"], b["logits"]))
+                for a, b in zip(steps, plain)]
+        diff = max(float((a["logits"] - b["logits"]).abs().max())
+                   for a, b in zip(steps, plain))
+        mm = [s["matmul"] for s in steps]
+        r = {"prompt": prompt.tolist(), "tokens": toks.tolist(),
+             "wall_s": wall, "n_graphs": rep["n_graphs"],
+             "n_programs": rep["n_programs"], "launches": launched,
+             "write_cycles": rep["write_cycles"],
+             "compare_cycles": rep["compare_cycles"],
+             "sets": rep["sets"], "resets": rep["resets"],
+             "energy_total_j": rep["energy_total_j"],
+             "energy_per_token_j": rep["energy_total_j"] / n_new,
+             "power_energy_j": rep["power"]["energy_j"],
+             "makespan_cycles": rep["makespan_cycles"],
+             "sequential_cycles": rep["sequential_cycles"],
+             "makespan_ns": rep["makespan_ns"],
+             "sequential_ns": rep["sequential_ns"],
+             "makespan_share": (rep["makespan_cycles"]
+                                / max(1, rep["sequential_cycles"])),
+             "resident": rep["cache"].get("resident"),
+             "linears": rep["cache"]["linears"],
+             "plain_equal": same, "plain_max_abs_diff": diff,
+             "plain_tokens": plain_toks.tolist(),
+             "steps": [{k: v for k, v in s.items() if k != "logits"}
+                       for s in steps],
+             "plain_step_ms": [s["host_ms"] for s in plain],
+             "report": {k: v for k, v in rep.items()
+                        if k not in ("cache", "latency", "power")}}
+        out["requests"].append(r)
+        for j, s in enumerate(steps):
+            log(f"  request {i} step {j}: {s['host_ms']:.1f} ms host clock, "
+                f"{s['launches']} program-kernel launches taking "
+                f"{s['kernel_ms']:.1f} ms on the device (CUDA events), "
+                f"host share {100 * (1 - s['kernel_ms'] / s['host_ms']):.1f}"
+                f" %, of it {s['rebuilds']} APLinear builds "
+                f"{s['rebuild_ms']:.1f} ms (host clock, after a "
+                f"synchronize); packed-matmul launches "
+                f"{s['matmul']}; card {card}")
+        log(f"  request {i}: tokens {toks.tolist()}, {rep['n_graphs']} "
+            f"graphs, {rep['n_programs']} programs, {launched} program-"
+            f"kernel launches; write cycles {rep['write_cycles']}, compare "
+            f"cycles {rep['compare_cycles']}, sets {rep['sets']}, resets "
+            f"{rep['resets']}; Table XI {rep['energy_total_j']:.6e} J "
+            f"({rep['energy_total_j'] / n_new:.6e} J per generated token); "
+            f"makespan {rep['makespan_cycles']} of {rep['sequential_cycles']}"
+            f" sequential cycles ({r['makespan_share']:.4f}); "
+            f"logits vs plain_ap_projections() bit-identical at "
+            f"{sum(same)} of {n_steps} steps (max |diff| {diff}); "
+            f"plain route {statistics.median(r['plain_step_ms']):.1f} ms a "
+            f"step (card {card}); resident store {r['resident']}")
+        check(all(same) and np.array_equal(toks, plain_toks),
+              f"AP serving request {i}: logits differ from "
+              f"plain_ap_projections() (max |diff| {diff})")
+        check(rep["n_graphs"] == n_graphs_step * n_steps,
+              f"AP serving request {i}: n_graphs {rep['n_graphs']}, "
+              f"expected {n_graphs_step * n_steps}")
+        check(launched == rep["n_programs"] == sum(s["launches"]
+                                                   for s in steps),
+              f"AP serving request {i}: {launched} program-kernel launches "
+              f"for {rep['n_programs']} graph nodes")
+        check(all(m == {"ternary_matmul": 0, "ternary_matmul_tc": 0}
+                  for m in mm), f"AP serving request {i}: a step launched "
+                                f"a packed-matmul kernel: {mm}")
+        check(toks.shape == (1, n_new), f"AP serving request {i}: tokens "
+                                        f"{toks.shape}")
+        check(rep["power"]["energy_j"] == rep["energy_total_j"],
+              f"AP serving request {i}: power rollup "
+              f"{rep['power']['energy_j']} J against Table XI "
+              f"{rep['energy_total_j']} J")
+    return out
+
+
+AP_PARITY = ("sets", "resets", "compare_cycles", "write_cycles",
+             "energy_total_j", "n_graphs", "n_programs", "makespan_cycles",
+             "sequential_cycles", "makespan_ns", "sequential_ns")
+
+
+def ap_batched(eng, probe, prompts, n_new, seq, card, log) -> dict:
+    """The same requests through BatchServer(max_inflight=4): one wave per
+    model step, tokens and every compared report field (and the power
+    rollup's energy) equal to the sequential run."""
+    from repro_torch.serve import AdmissionCfg, BatchServer
+    waves: list = []
+    t0 = time.perf_counter()
+    with BatchServer(eng, admission=AdmissionCfg(max_inflight=4)) as srv:
+        record_waves(srv, probe, waves)
+        handles = [srv.submit(p, n_new) for p in prompts]
+        results = [(h.result(timeout=900), h.ap_report()) for h in handles]
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall, "waves": waves, "requests": []}
+    for i, ((toks, rep), want) in enumerate(zip(results, seq["requests"])):
+        fields = {k: rep[k] for k in AP_PARITY}
+        diff = [k for k in AP_PARITY if rep[k] != want["report"][k]]
+        out["requests"].append({"tokens": toks.tolist(), "report": fields,
+                                "power_energy_j": rep["power"]["energy_j"],
+                                "differs": diff})
+        log(f"  batched request {i}: tokens {toks.tolist()} (sequential "
+            f"{want['tokens']}); report fields that differ from the "
+            f"sequential run: {diff or 'none'}; power rollup "
+            f"{rep['power']['energy_j']:.6e} J")
+        check(toks.tolist() == want["tokens"] and not diff
+              and rep["power"]["energy_j"] == want["power_energy_j"],
+              f"batched request {i} differs from sequential serving: {diff}")
+    for w in waves:
+        log(f"  {wave_line(w, card)}")
+    return out
+
+
+def wave_line(w: dict, card: str) -> str:
+    return (f"wave of width {w['width']}: {w['host_ms']:.1f} ms host clock, "
+            f"{w['launches']} program-kernel launches taking "
+            f"{w['kernel_ms']:.1f} ms on the device (CUDA events), "
+            f"{w['rebuilds']} APLinear builds taking {w['rebuild_ms']:.1f} "
+            f"ms over the threads, {w['rebuild_wall_ms']:.1f} ms of wall; "
+            f"card {card}")
+
+
+def ap_wave(eng, probe, gen, width: int, n_graphs_step, card, log) -> dict:
+    """``width`` requests of one token and one new token through the
+    BatchServer: one wave, every graph call merged across them (and, as in
+    every merged graph, like tile nodes merged within each)."""
+    import torch
+    from repro_torch.serve import AdmissionCfg, BatchServer
+    prompts = [torch.randint(1, eng.cfg.vocab, (1, 1), generator=gen)
+               .numpy().astype(np.int32) for _ in range(width)]
+    waves: list = []
+    with BatchServer(eng, admission=AdmissionCfg(max_inflight=4)) as srv:
+        record_waves(srv, probe, waves)
+        handles = [srv.submit(p, 1) for p in prompts]
+        results = [(h.result(timeout=900), h.ap_report()) for h in handles]
+    check(len(waves) == 1 and waves[0]["width"] == width,
+          f"wave of {width}: waves {[w['width'] for w in waves]}")
+    for toks, rep in results:
+        check(toks.shape == (1, 1) and rep["n_graphs"] == n_graphs_step,
+              f"wave of {width}: tokens {toks.shape}, n_graphs "
+              f"{rep['n_graphs']}")
+    w = waves[0]
+    log(f"  {wave_line(w, card)}; tokens "
+        f"{[t.tolist() for t, _ in results]}; programs per request "
+        f"{results[0][1]['n_programs']}")
+    return {"wave": w, "tokens": [t.tolist() for t, _ in results],
+            "n_programs": [rep["n_programs"] for _, rep in results]}
+
+
+def ap_wave_table(res: dict, card: str, log) -> dict:
+    """Median host and program-kernel ms per model step: sequential steps
+    (Engine.generate, no merging), and waves of widths 1, 2 and 4 through
+    the BatchServer (graphs merged)."""
+    rows = {"sequential": [s for r in res["sequential"]["requests"]
+                           for s in r["steps"]],
+            "wave 1": [res["wave1"]["wave"]],
+            "wave 2": [w for w in res["batched"]["waves"]
+                       if w["width"] == 2],
+            "wave 4": [res["wave4"]["wave"]]}
+    table = {}
+    for name, xs in rows.items():
+        if not xs:
+            continue
+        table[name] = {k: statistics.median(x[k] for x in xs) for k in
+                       ("host_ms", "kernel_ms", "launches", "rebuild_ms",
+                        "rebuild_wall_ms")}
+        t = table[name]
+        log(f"  {name}: {t['host_ms']:.1f} ms host clock a step (median of "
+            f"{len(xs)}), program kernel {t['kernel_ms']:.1f} ms on the "
+            f"device over {t['launches']:.0f} launches, host share "
+            f"{100 * (1 - t['kernel_ms'] / t['host_ms']):.1f} %, APLinear "
+            f"builds {t['rebuild_wall_ms']:.1f} ms of wall "
+            f"({t['rebuild_ms']:.1f} ms over the threads); card {card}")
+    return table
+
+
+def ap_moe_card_vs_cpu(dev, card: str, log) -> dict:
+    """qwen3-moe-30b-a3b's smoke config at 2 layers and the CPU tests'
+    tiny widths (tests/test_torch_serve.py), fp32 compute, every expert
+    projection through ap_moe_dispatch: the same seeded weights (drawn on
+    the CPU) on the card and on the CPU, equal tokens and APStats."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import MoECfg
+    from repro_torch.models import model
+    base = get_smoke_config("qwen3-moe-30b-a3b")
+    cfg = base.with_(n_layers=2, d_model=16, n_heads=2, n_kv_heads=2,
+                     head_dim=8, vocab=32, compute_dtype="float32",
+                     moe=MoECfg(n_experts=4, top_k=2, d_ff=24))
+    prompt, n_new = np.array([[3, 5]], np.int32), 2
+    n_graphs = 2 * cfg.n_layers * (prompt.shape[1] + n_new - 1)
+    cpu = torch.device("cpu")
+    weights = model.cast_params(cfg, model.init_params(cfg, seed=SEED,
+                                                       device=cpu))
+    out = {}
+    for name, where in (("card", dev), ("cpu", cpu)):
+        params = model._tree_map(lambda t, _: t.to(where), weights)
+        eng = ap_engine(cfg, params, where, pool=AP_SERVE_MOE_POOL,
+                        max_len=8)
+        t0 = time.perf_counter()
+        toks = eng.generate(prompt, n_new)
+        st = eng.ap_ctx.stats
+        out[name] = {"tokens": toks.tolist(),
+                           "stats": stats_fields(st),
+                           "n_graphs": eng.ap_ctx.n_graphs,
+                           "s": time.perf_counter() - t0}
+    card_run, cpu_run = out["card"], out["cpu"]
+    log(f"  MoE ({cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, 2 "
+        f"layers, ArrayPool{AP_SERVE_MOE_POOL}): card tokens "
+        f"{card_run['tokens']} in {card_run['s']:.2f} s, CPU "
+        f"{cpu_run['tokens']} in {cpu_run['s']:.2f} s; APStats equal: "
+        f"{card_run['stats'] == cpu_run['stats']}; {card_run['n_graphs']} "
+        f"graphs; card {card}")
+    check(card_run["tokens"] == cpu_run["tokens"]
+          and card_run["stats"] == cpu_run["stats"]
+          and card_run["n_graphs"] == cpu_run["n_graphs"] == n_graphs,
+          "MoE AP serving: the card and the CPU disagree")
+    return out
+
+
+def float_route(cfg, params, dev, card, log) -> dict:
+    """The engine without an AP context at launch/serve.py's defaults: the
+    packed-matmul kernels, 84 CUDA-core launches a step, tokens equal to a
+    direct decode_step loop on the same params."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serve import Engine, ServeCfg
+    b, s_prompt, n_new, max_len = SERVE_SHAPE
+    n_mlp = 3 * cfg.n_layers
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(SEED + 12)
+    prompts = torch.randint(1, cfg.vocab, (b, s_prompt), generator=gen) \
+        .numpy().astype(np.int32)
+    eng = Engine(cfg, params, ServeCfg(max_len=max_len), device=dev)
+    steps: list = []
+    record_steps(eng, steps)
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, n_new)
+    wall = time.perf_counter() - t0
+    cache = model.init_cache(cfg, b, max_len, device=dev)
+    want, tok = [], None
+    with torch.no_grad():
+        for pos in range(s_prompt + n_new - 1):
+            inp = torch.from_numpy(prompts[:, pos]).to(dev).long() \
+                if pos < s_prompt else tok
+            logits, cache = model.decode_step(cfg, params, cache, inp, pos)
+            if pos >= s_prompt - 1:
+                tok = logits.argmax(-1)
+                want.append(tok)
+    want = torch.stack(want, 1).cpu().numpy()
+    moves = [s["matmul"] for s in steps]
+    ms = statistics.median(s["host_ms"] for s in steps)
+    res = {"batch": b, "prompt": s_prompt, "new": n_new, "max_len": max_len,
+           "wall_s": wall, "median_step_ms": ms,
+           "tokens_per_s": b * n_new / wall,
+           "launches_per_step": moves[0], "equal_to_loop":
+           bool(np.array_equal(toks, want))}
+    log(f"  float route (no ap_ctx), batch {b}, {s_prompt}-token prompts, "
+        f"{n_new} new tokens, cache {max_len}: {ms:.2f} ms a step (host "
+        f"clock, synchronized, median of {len(steps)}), {b * n_new / wall:.1f}"
+        f" tokens/s over generate(); launches a step {moves[0]}; tokens "
+        f"equal to a decode_step loop: {res['equal_to_loop']}; card {card}")
+    want_moves = {"ternary_matmul": n_mlp, "ternary_matmul_tc": 0}
+    check(all(m == want_moves for m in moves),
+          f"float route: launches {moves[:3]}, expected {want_moves} a step")
+    check(res["equal_to_loop"], "float route: tokens differ from a direct "
+                                "decode_step loop")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -1974,9 +2523,15 @@ def main() -> int:
             lambda dev, log: phase_model_path(dev, card, log),
             ("ternary_matmul", "ternary_matmul_tc"))
         log(f"  phase 3d took {report['model_path']['seconds']:.3f} s")
+        log("[main path: qwen3-0.6b at full width and depth, AP serving]")
+        report["ap_serve_path"] = main_path(
+            "qwen3-0.6b AP serving",
+            lambda dev, log: phase_ap_serve_path(dev, card, log),
+            ("tap_run_program", "ternary_matmul"))
+        log(f"  phase 3e took {report['ap_serve_path']['seconds']:.3f} s")
         launches = {k: sum(report[p]["launches"][k] for p in (
-            "main_path", "matmul_path", "pool_path", "model_path"))
-            for k in KERNELS}
+            "main_path", "matmul_path", "pool_path", "model_path",
+            "ap_serve_path")) for k in KERNELS}
 
         log("[times]")
         report["times"] = phase_times(dev, card, log)

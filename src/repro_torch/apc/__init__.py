@@ -45,6 +45,10 @@ IR / compiler concept        Paper concept
                              model over a pool.
 ``power.PowerTimeline``      Per-array power from the schedule and the exact
                              per-block counters (Table XI).
+``layers.APLinear``          A model projection as a cached K-tiled MAC;
+                             ``APServeContext`` aggregates per-request
+                             APStats / Table XI energy across every AP-
+                             served projection of a forward pass.
 ==========================  =================================================
 
 Typical use::
@@ -70,7 +74,9 @@ from .faults import (FaultConfig, FaultDetected, FaultModel,
 from .graph import (CARRIED, FoldStage, GraphNode, MergedGraphView,
                     MergedSlice, ProgramGraph, coalesce_graphs,
                     fold_stage_input, graph_makespan, mac_fold_plan)
-from .layers import N_MASKED_MAC
+from .layers import (N_MASKED_MAC, APCall, APLinear, APServeContext, APSink,
+                     ap_moe_dispatch, ap_request_scope, ap_serving,
+                     current_ap_context, plain_ap_projections)
 from .runtime import DevicePool, GraphResult, Runtime
 from .ir import (AffineCol, ApplyLUT, CompareWrite, ForDigit, Program,
                  RelCol, SetCol, ZeroCol, digit)
@@ -114,7 +120,9 @@ __all__ = [
     "CARRIED", "FoldStage", "GraphNode", "MergedGraphView", "MergedSlice",
     "ProgramGraph", "coalesce_graphs", "fold_stage_input",
     "graph_makespan", "mac_fold_plan",
-    "N_MASKED_MAC",
+    "N_MASKED_MAC", "APCall", "APLinear", "APServeContext", "APSink",
+    "ap_moe_dispatch", "ap_request_scope", "ap_serving",
+    "current_ap_context", "plain_ap_projections",
     "DevicePool", "GraphResult", "Runtime",
     "AffineCol", "ApplyLUT", "CompareWrite", "ForDigit", "Program", "RelCol",
     "SetCol", "ZeroCol", "digit",

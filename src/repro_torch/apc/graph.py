@@ -298,7 +298,9 @@ class ProgramGraph:
         only, reduce nodes their fresh partial columns.  The default
         (False) keeps the historical upload-free model.
         """
-        x, w_ter = torch.as_tensor(x), torch.as_tensor(w_ter)
+        x = torch.as_tensor(x)
+        if w_ter is not None:             # None: the weights are resident
+            w_ter = torch.as_tensor(w_ter)
         R, K = x.shape
         if K != tiled.K:
             raise ValueError(f"x has K={K}, tiled program compiled for "

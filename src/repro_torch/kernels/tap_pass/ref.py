@@ -17,6 +17,7 @@ the program kernel).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...core.lut import LUT
@@ -98,7 +99,9 @@ def run_program_plain(arr: torch.Tensor, cmp_cols: torch.Tensor,
     ``n_valid_rows`` is not read.  Returns the new digits
     and, with ``collect_stats``, one int32 counter row per ``block_rows``
     block laid out [sets, resets, hist[0..HIST_BINS)], the top bin
-    saturating at ``HIST_BINS - 1`` mismatches.
+    saturating at ``HIST_BINS - 1`` mismatches.  CPU tensors replay in
+    NumPy, tensors on another device in PyTorch ops there (the plain
+    version the program kernel is held against on the card).
     """
     rows = arr.shape[0]
     if rows % block_rows:
@@ -107,6 +110,107 @@ def run_program_plain(arr: torch.Tensor, cmp_cols: torch.Tensor,
     if n_slots % pack:
         raise ValueError(f"{n_slots} schedule slots not a multiple of "
                          f"pack={pack}")
+    if block_valid is not None:
+        bv = torch.as_tensor(block_valid).to(dtype=torch.int64)
+        if tuple(bv.shape) != (rows // block_rows,):
+            raise ValueError(f"block_valid has {bv.numel()} counts for "
+                             f"{rows // block_rows} blocks")
+    if arr.device.type == "cpu":
+        return _run_program_numpy(
+            arr, cmp_cols, keys, key_valid, hist_flag, wr_cols, wr_vals,
+            n_valid_rows, block_rows=block_rows,
+            collect_stats=collect_stats, pack=pack, block_valid=block_valid)
+    return _run_program_torch(
+        arr, cmp_cols, keys, key_valid, hist_flag, wr_cols, wr_vals,
+        n_valid_rows, block_rows=block_rows, collect_stats=collect_stats,
+        pack=pack, block_valid=block_valid)
+
+
+def _row_ok_numpy(rows: int, n_valid_rows: int, block_rows: int,
+                  block_valid) -> np.ndarray:
+    if block_valid is None:
+        return np.arange(rows) < n_valid_rows
+    bv = torch.as_tensor(block_valid).cpu().numpy().astype(np.int64)
+    return (np.arange(block_rows)[None, :] < bv[:, None]).reshape(rows)
+
+
+def _run_program_numpy(arr, cmp_cols, keys, key_valid, hist_flag, wr_cols,
+                       wr_vals, n_valid_rows: int, *, block_rows: int,
+                       collect_stats: bool, pack: int, block_valid
+                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`run_program_plain` for a CPU tensor, in NumPy: the same
+    slots, tags, writes and counters, with less per-operation overhead
+    (a slot is a few operations on short row vectors).  Counters are
+    summed per block as they are counted."""
+    rows = arr.shape[0]
+    n_blocks = rows // block_rows
+    host = [torch.as_tensor(t).cpu().numpy()
+            for t in (cmp_cols, keys, key_valid, hist_flag, wr_cols,
+                      wr_vals)]
+    cc, ks, kv, hf, wc, wv = host
+    kv, hf = kv.astype(bool), hf.astype(bool)
+    out = arr.numpy().copy()
+    row_ok = _row_ok_numpy(rows, n_valid_rows, block_rows, block_valid)
+    block_of = np.arange(rows) // block_rows
+    sets = np.zeros(rows, np.int64)
+    resets = np.zeros(rows, np.int64)
+    hist = np.zeros(n_blocks * HIST_BINS, np.int64)
+    # per slot, once: the valid compare columns and the valid keys on them
+    slots = []
+    for s in range(cc.shape[0]):
+        cmask = cc[s] >= 0
+        cols = cc[s][cmask]
+        slots.append((kv[s].any(), cols, ks[s][kv[s]][:, cmask],
+                      collect_stats and hf[s],
+                      [(int(c), int(v)) for c, v in zip(wc[s], wv[s])
+                       if c >= 0]))
+    hist_base = (block_of * HIST_BINS)[row_ok]
+    for g in range(len(slots) // pack):
+        group = slots[g * pack:(g + 1) * pack]
+        tags = []
+        for any_key, cols, kk, count, _ in group:
+            if not any_key:                                # unconditional
+                tags.append(row_ok)
+                continue
+            sub = out[:, cols]                             # (rows, C)
+            if len(kk) == 1 and not count:
+                hit = ((sub == kk[0]) | (sub == DONT_CARE)).all(axis=1)
+                tags.append(hit & row_ok)
+                continue
+            sub = sub[:, None, :]
+            miss = (sub != kk[None]) & (sub != DONT_CARE)
+            mm = miss.sum(axis=2)                          # (rows, K)
+            tags.append((mm == 0).any(axis=1) & row_ok)
+            if count:
+                bins = np.minimum(mm[row_ok], HIST_BINS - 1)
+                hist += np.bincount(
+                    (hist_base[:, None] + bins).ravel(),
+                    minlength=n_blocks * HIST_BINS)
+        for tag, (_, _, _, _, writes) in zip(tags, group):
+            for col, v in writes:
+                old = out[:, col]                          # a view
+                changed = tag & (old != v)
+                if collect_stats:
+                    sets += changed
+                    resets += changed & (old != DONT_CARE)
+                np.copyto(old, v, where=changed)
+    res = torch.from_numpy(out)
+    if not collect_stats:
+        return res, None
+    counts = np.concatenate([
+        sets.reshape(n_blocks, block_rows).sum(axis=1)[:, None],
+        resets.reshape(n_blocks, block_rows).sum(axis=1)[:, None],
+        hist.reshape(n_blocks, HIST_BINS)], axis=1)
+    return res, torch.from_numpy(counts.astype(np.int32))
+
+
+def _run_program_torch(arr, cmp_cols, keys, key_valid, hist_flag, wr_cols,
+                       wr_vals, n_valid_rows: int, *, block_rows: int,
+                       collect_stats: bool, pack: int, block_valid
+                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`run_program_plain` in PyTorch ops on the tensors' device."""
+    rows = arr.shape[0]
+    n_slots = cmp_cols.shape[0]
     dev = arr.device
     cmp_cols, keys, key_valid, wr_cols, wr_vals = (
         torch.as_tensor(t).to(dev) for t in (cmp_cols, keys, key_valid,
@@ -124,9 +228,6 @@ def run_program_plain(arr: torch.Tensor, cmp_cols: torch.Tensor,
         row_ok = torch.arange(rows, device=dev) < n_valid_rows
     else:
         bv = torch.as_tensor(block_valid).to(device=dev, dtype=torch.int64)
-        if tuple(bv.shape) != (rows // block_rows,):
-            raise ValueError(f"block_valid has {bv.numel()} counts for "
-                             f"{rows // block_rows} blocks")
         local = torch.arange(block_rows, device=dev)
         row_ok = (local[None, :] < bv[:, None]).reshape(rows)
     per_row = (torch.zeros((rows, 2 + HIST_BINS), dtype=torch.int32,

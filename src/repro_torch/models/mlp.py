@@ -6,8 +6,9 @@ Packed serving weights (``w1_packed`` ..., :mod:`.quant`) run through the
 packed-ternary CUDA kernels on CUDA tensors
 (:func:`~repro_torch.kernels.ternary_matmul.ops.ternary_matmul_op`: the
 tensor cores from 16 rows, the CUDA cores below) and through the plain
-:func:`.quant.unpack_matmul` on CPU tensors.  The AP-served branch
-(``mlp_ap``) comes with AP-backed serving, ROADMAP queue 1, item 9.
+:func:`.quant.unpack_matmul` on CPU tensors.  Inside
+:func:`repro_torch.apc.layers.ap_serving` the packed branch runs on the AP
+instead (:func:`mlp_ap`: MAC programs over the array pool).
 """
 from __future__ import annotations
 
@@ -75,9 +76,41 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
+def mlp_ap(p: dict, x: torch.Tensor, act: str, ctx) -> torch.Tensor:
+    """AP-served SwiGLU on packed ternary weights: gate and up projections
+    are INDEPENDENT tiled-MAC subgraphs of one ProgramGraph (the runtime
+    interleaves their tiles across the array bank); the down projection
+    runs in a second graph after the float combine.  Activations quantize
+    to ``ctx.x_levels`` integers per projection — the AP arithmetic on the
+    quantized grid is exact, and every compare/write cycle lands in
+    ``ctx.stats`` for the per-request Table XI report."""
+    from ..apc.graph import ProgramGraph
+    lead, d = x.shape[:-1], x.shape[-1]
+    x2d = x.reshape(-1, d)
+    lin1 = ctx.linear("w1", p["w1_packed"], p["w1_scale"], label="mlp.w1")
+    lin3 = ctx.linear("w3", p["w3_packed"], p["w3_scale"], label="mlp.w3")
+    lin2 = ctx.linear("w2", p["w2_packed"], p["w2_scale"], label="mlp.w2")
+    x_int, s_x = ctx.quantize(x2d)
+    g1 = ProgramGraph()
+    c1 = lin1.add_call(g1, x_int, max_cols=ctx.max_cols, max_q=ctx.x_levels)
+    c3 = lin3.add_call(g1, x_int, max_cols=ctx.max_cols, max_q=ctx.x_levels)
+    res1 = ctx.run_graph(g1)
+    h = act_fn(act)(c1.decode(res1, s_x)) * c3.decode(res1, s_x)
+    h_int, s_h = ctx.quantize(h)
+    g2 = ProgramGraph()
+    c2 = lin2.add_call(g2, h_int, max_cols=ctx.max_cols, max_q=ctx.x_levels)
+    res2 = ctx.run_graph(g2)
+    y = c2.decode(res2, s_h)
+    return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+
+
 def mlp(p: dict, x: torch.Tensor, act: str = "silu", ternary: bool = False,
         qat: bool = False) -> torch.Tensor:
     if "w1_packed" in p:                     # packed ternary serving weights
+        from ..apc.layers import current_ap_context
+        ctx = current_ap_context()
+        if ctx is not None:                  # AP-backed serving path
+            return mlp_ap(p, x, act, ctx)
         h = act_fn(act)(packed_matmul(x, p["w1_packed"], p["w1_scale"])) \
             * packed_matmul(x, p["w3_packed"], p["w3_scale"])
         return packed_matmul(h, p["w2_packed"], p["w2_scale"])

@@ -7,8 +7,8 @@ an [E, C, d] buffer -> block-diagonal expert einsum -> weighted combine.
 :func:`moe_ffn` is the single-device body of the reference's
 ``_local_moe_tp`` without its collectives.  On one chip the reference's
 ``"ep"`` mode falls to that body too (it needs more than one model shard).
-The AP-served ``moe_ffn_ap`` comes with AP-backed serving, ROADMAP queue 1,
-item 9.
+Inside :func:`repro_torch.apc.layers.ap_serving` the experts run on the AP
+instead (:func:`moe_ffn_ap`).
 """
 from __future__ import annotations
 
@@ -72,10 +72,36 @@ def _expert_ffn(buf: torch.Tensor, w1, w3, w2, act: str) -> torch.Tensor:
     return torch.bmm(h, w2)
 
 
+def moe_ffn_ap(p: dict, x: torch.Tensor, cfg: MoECfg, act: str,
+               ctx) -> torch.Tensor:
+    """AP-served MoE: router runs in float, then every routed expert's
+    SwiGLU projections go through :func:`repro_torch.apc.layers.
+    ap_moe_dispatch` as independent tiled-MAC subgraphs of one
+    ProgramGraph — tiles of different experts interleave across the array
+    bank.  Expert weights ternarize (absmean per-channel) via the
+    context's per-stack cache.  No capacity drop: every routed pair is
+    served."""
+    from ..apc.layers import ap_moe_dispatch
+    b, s, d = x.shape
+    x2d = x.reshape(b * s, d)
+    gates, experts = _route(x2d, p["router"], cfg)
+    w1l = ctx.expert_linears("moe.w1", p["w1"], label="moe.w1.")
+    w3l = ctx.expert_linears("moe.w3", p["w3"], label="moe.w3.")
+    w2l = ctx.expert_linears("moe.w2", p["w2"], label="moe.w2.")
+    y2d = ap_moe_dispatch(ctx, x2d, experts, gates, w1l, w3l, w2l,
+                          act_fn(act))
+    return y2d.reshape(b, s, d).to(x.dtype)
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: MoECfg, act: str
             ) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]: route, dispatch at capacity
-    ``max(8, int(T*k*cf/E))``, run the experts, combine."""
+    ``max(8, int(T*k*cf/E))``, run the experts, combine (on the AP inside
+    ``ap_serving``)."""
+    from ..apc.layers import current_ap_context
+    ctx = current_ap_context()
+    if ctx is not None:                      # AP-backed serving path
+        return moe_ffn_ap(p, x, cfg, act, ctx)
     b, s, d = x.shape
     t = b * s
     x2d = x.reshape(t, d)

@@ -1,0 +1,660 @@
+"""Continuous-batching AP serving: merge in-flight requests into shared waves.
+
+The port of :mod:`repro.serve.batcher`.  The AP's batch axis is the pool's
+ROW axis: independent requests' token rows can share one schedule replay
+(`ArrayPool.run` streams row blocks through the bank either way), so
+serving requests one at a time leaves the bank under-occupied for no
+reason.  This module drives many step-granular
+:class:`~repro_torch.serve.engine.Request` objects in lockstep *waves* —
+each wave advances every in-flight request by exactly one model step — and
+merges the AP graphs those steps emit into ONE row-concatenated
+:class:`~repro_torch.apc.graph.ProgramGraph` per graph call
+(:func:`~repro_torch.apc.graph.coalesce_graphs`).
+
+Bit-exactness contract: a request served through the batcher produces the
+same tokens AND the same per-request :class:`~repro_torch.core.ap.APStats` as
+sequential `Engine.generate` serving.  Tokens because row concatenation is
+block-aligned (every request's rows land in their own kernel blocks, padded
+and masked exactly like a standalone tail block); stats because each merged
+node's per-block traced counters are an exact partition over the source
+requests (split by :class:`~repro_torch.apc.graph.MergedSlice` block
+ranges) and the schedule-static compare/write cycles are charged per
+source node, just like a sequential run.
+
+Moving parts:
+
+- :class:`WaveMerger` — the per-wave rendezvous.  Every request thread's
+  ``ctx.run_graph`` (routed here by :func:`~repro_torch.apc.layers.
+  ap_request_scope`) deposits its graph and double-waits on a barrier; the
+  elected leader coalesces, runs the merged graph once
+  (``collect_stats=True``), and splits results + counters per request.
+  Counter syncs are *deferred* into each request's
+  :class:`~repro_torch.apc.layers.APSink` so the host encodes wave k+1 while
+  wave k's launches drain.
+- :class:`BatchServer` — submission queue (:class:`~repro_torch.serve.queue.
+  IterableQueue`) + dispatcher thread + admission control.  Admission
+  prices a hypothetical wave (every active request's recorded per-step
+  node profile, plus the candidate's) with
+  :func:`~repro_torch.apc.graph.graph_makespan` and admits only while the
+  makespan fits ``AdmissionCfg.max_wave_cycles`` (policy ``"queue"`` holds
+  the candidate back; ``"reject"`` fails it with
+  :class:`AdmissionRejected`).
+
+The lockstep design assumes the model's AP graph cadence is config-static
+(every request's step issues the same number of ``ctx.run_graph`` calls —
+true for the packed-ternary MLP stack, where each layer runs exactly two
+graphs).  A request that falls out of cadence breaks the barrier, which
+surfaces as :class:`WaveAborted` rather than a hang.
+
+Threads: each request of a merged wave steps in a worker thread, which
+starts with empty contextvars and its own grad mode and current device, so
+it enters ``trace.disabled()``, the engine's device, ``ap_serving`` and
+its ``ap_request_scope`` itself.  Only the wave's leader launches the
+merged graph's program kernels, on the device's current stream; the
+dispatcher reads the kernels' launch counts after the joins.
+"""
+from __future__ import annotations
+
+import queue as _queue
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+
+from ..apc import trace
+from ..apc.graph import (MergedGraphView, ProgramGraph, coalesce_graphs,
+                         graph_makespan)
+from ..apc.layers import APSink, ap_request_scope, ap_serving
+from ..apc.metrics import get_registry
+from ..apc.stats import TracedStats
+from .engine import Engine, Request
+from .monitor import ServeMonitor, SLOCfg
+from .queue import ClosedQueue, IterableQueue
+
+__all__ = ["AdmissionCfg", "AdmissionRejected", "BatchServer",
+           "RequestHandle", "SLOCfg", "ServeMonitor", "WaveAborted",
+           "WaveMerger"]
+
+
+class WaveAborted(RuntimeError):
+    """A wave's rendezvous broke (a peer errored or fell out of cadence)."""
+
+
+class AdmissionRejected(RuntimeError):
+    """Admission control shed this request (policy='reject')."""
+
+
+def _never_build(*_a):   # shadow-graph nodes are priced, never executed
+    raise AssertionError("admission shadow graph is never run")
+
+
+class WaveMerger:
+    """Rendezvous that merges one wave's per-request graphs into one run.
+
+    ``n_slots`` request threads each call :meth:`run_graph` once per graph
+    call (after :meth:`bind`-ing their slot).  The call double-waits on a
+    shared barrier: after the first wait every slot's graph is deposited
+    and the elected leader coalesces + runs the merged graph; after the
+    second, every thread picks up its own result view, charges its sink
+    the standalone occupancy report of its OWN graph (identical numbers
+    to sequential serving), and defers its slice of the traced counters.
+    The barrier is reusable, so the same merger serves every graph call
+    of one wave.
+    """
+
+    def __init__(self, runtime, n_slots: int, *, timeout: float = 120.0,
+                 track_power: bool = False):
+        self.runtime = runtime
+        self.n_slots = n_slots
+        self._barrier = threading.Barrier(n_slots, timeout=timeout)
+        self._tls = threading.local()
+        self._graphs: list[ProgramGraph | None] = [None] * n_slots
+        self._views: list[MergedGraphView | None] = [None] * n_slots
+        self._reports: list[dict | None] = [None] * n_slots
+        self._accums: list[list[tuple]] = [[] for _ in range(n_slots)]
+        self._power_defers: list[tuple | None] = [None] * n_slots
+        self._run_error: BaseException | None = None
+        # when on, the leader also builds the MERGED wave's power timeline
+        # (a host counter sync — gated because it defeats the deferred-
+        # sync overlap; the per-request power joins stay deferred either
+        # way) and records the bank peak in ``last_wave_peak_w``
+        self.track_power = track_power
+        self.last_wave_peak_w: float | None = None
+        # per-slot, per-graph-call node profiles
+        # (compiled, rows, deps, upload_cycles) — the admission oracle's
+        # raw material (upload priced so resident-weight waves cost less)
+        self.profiles: list[list[list[tuple]]] = [[] for _ in range(n_slots)]
+        self.n_merged_runs = 0
+        self.merged_nodes = 0
+        self.source_nodes = 0
+
+    def bind(self, slot: int) -> None:
+        """Register the calling thread as ``slot`` for this wave."""
+        self._tls.slot = slot
+
+    def abort(self) -> None:
+        """Break the rendezvous (peers see :class:`WaveAborted`)."""
+        self._barrier.abort()
+
+    def run_graph(self, ctx, graph: ProgramGraph, sink: APSink):
+        slot = self._tls.slot
+        self._graphs[slot] = graph
+        self.profiles[slot].append(
+            [(n.compiled, n.rows, n.deps, n.upload_cycles)
+             for n in graph.nodes])
+        try:
+            if self._barrier.wait() == 0:        # all deposited; 0 leads
+                try:
+                    self._merge_and_run(ctx)
+                except BaseException as e:       # peers must not hang
+                    self._run_error = e
+            self._barrier.wait()                 # results ready
+        except threading.BrokenBarrierError as e:
+            raise WaveAborted("wave rendezvous broke") from e
+        if self._run_error is not None:
+            raise WaveAborted("merged wave run failed") from self._run_error
+        view = self._views[slot]
+        sink.add_report(self._reports[slot])
+        for acc in self._accums[slot]:
+            sink.defer(*acc)
+        if self._power_defers[slot] is not None:
+            sink.defer_power(*self._power_defers[slot])
+        self._graphs[slot] = None
+        return view
+
+    def _merge_and_run(self, ctx) -> None:
+        graphs = [g for g in self._graphs]
+        if any(g is None for g in graphs):       # pragma: no cover
+            raise RuntimeError("wave slot missing a graph")
+        merged, maps = coalesce_graphs(graphs,
+                                       block_rows=self.runtime.pool.rows)
+        res = self.runtime.run_graph(merged, collect_stats=True)
+        self.n_merged_runs += 1
+        self.merged_nodes += len(merged)
+        self.source_nodes += sum(len(g) for g in graphs)
+        n_arrays_local = self.runtime.pool.n_arrays
+        for slot, g in enumerate(graphs):
+            m = maps[slot]
+            # the standalone occupancy of this request's own graph: the
+            # exact numbers sequential serving would have recorded (and,
+            # via ``rec``, the schedule its power timeline is placed on)
+            rec: list = []
+            self._reports[slot] = self.runtime.makespan(g, record=rec)
+            self._views[slot] = MergedGraphView(res, m, self._reports[slot])
+            accums = []
+            traced_map: dict[int, TracedStats] = {}
+            labels: dict[int, str] = {}
+            for nid, node in enumerate(g.nodes):
+                sl = m[nid]
+                tr = res.traced.get(sl.node)
+                sliced = (TracedStats(
+                    tr.block_counts[sl.block_lo:sl.block_hi])
+                    if tr is not None else None)
+                accums.append((sliced, node.compiled, node.rows,
+                               node.label or f"node{nid}"))
+                if sliced is not None:
+                    traced_map[nid] = sliced
+                labels[nid] = node.label or f"node{nid}"
+            self._accums[slot] = accums
+            # the per-request power join stays deferred (lazy device
+            # slices; the sink syncs at flush) — same contract as the
+            # counter defers above
+            self._power_defers[slot] = (rec, traced_map, labels,
+                                        n_arrays_local)
+        if self.track_power:
+            from ..apc.layers import N_MASKED_MAC
+            from ..apc.power import graph_power
+            tl = graph_power(
+                res.schedule, res.traced, radix=merged.radix or 3,
+                n_masked=N_MASKED_MAC, n_arrays_local=n_arrays_local)
+            peak = 0.0
+            for iv in tl.intervals:
+                peak = max(peak, iv.power_w)
+            self.last_wave_peak_w = peak
+
+
+# ---------------------------------------------------------------------------
+# Admission control: price the next wave before letting a request in
+# ---------------------------------------------------------------------------
+
+@dataclass
+class AdmissionCfg:
+    """Knobs gating how much concurrent work the bank accepts.
+
+    ``max_inflight`` caps lockstep width outright.  ``max_wave_cycles``
+    prices a hypothetical wave — every active request's recorded per-step
+    node profile plus the candidate's — with the occupancy model and
+    admits only while the makespan fits.  ``policy``: ``"queue"`` keeps
+    inadmissible candidates waiting, ``"reject"`` fails them with
+    :class:`AdmissionRejected`.
+    """
+    max_inflight: int = 8
+    max_wave_cycles: int | None = None
+    policy: str = "queue"          # "queue" | "reject"
+
+    def __post_init__(self):
+        if self.policy not in ("queue", "reject"):
+            raise ValueError(f"policy must be 'queue' or 'reject', "
+                             f"got {self.policy!r}")
+        if self.max_inflight < 1:
+            raise ValueError("max_inflight must be >= 1")
+
+
+def wave_cost_cycles(profiles, *, n_arrays: int, rows_per_array: int,
+                     n_devices: int = 1,
+                     dead_arrays: tuple[int, ...] = ()) -> int:
+    """Occupancy-model makespan (cycles) of one wave built from per-request
+    step profiles (lists of per-graph-call ``(compiled, rows, deps)`` or
+    ``(compiled, rows, deps, upload_cycles)`` node lists — the 4th entry
+    prices operand uploads, so resident-weight waves cost less)."""
+    shadow = ProgramGraph()
+    for prof in profiles:
+        for gnodes in prof:
+            base = len(shadow.nodes)
+            for compiled, rows, deps, *rest in gnodes:
+                shadow.add(compiled, rows=rows, build=_never_build,
+                           deps=tuple(base + d for d in deps),
+                           upload_cycles=rest[0] if rest else 0)
+    if not len(shadow):
+        return 0
+    rep = graph_makespan(shadow, n_arrays=n_arrays,
+                         rows_per_array=rows_per_array, n_devices=n_devices,
+                         dead_arrays=dead_arrays)
+    return int(rep["makespan_cycles"])
+
+
+# ---------------------------------------------------------------------------
+# The server
+# ---------------------------------------------------------------------------
+
+class RequestHandle:
+    """Future for one submitted request."""
+
+    def __init__(self, prompts: np.ndarray, n_new: int, cross_embeds=None):
+        self.prompts = np.asarray(prompts)
+        self.n_new = int(n_new)
+        self.cross_embeds = cross_embeds
+        self.submitted_at = time.perf_counter()
+        self._event = threading.Event()
+        self._tokens: np.ndarray | None = None
+        self._error: BaseException | None = None
+        self._ap_report: dict | None = None
+        self.latency_ms: float | None = None
+
+    @property
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def result(self, timeout: float | None = None) -> np.ndarray:
+        """Generated ids [B, n_new]; raises the request's failure, or
+        TimeoutError if it is not finished within ``timeout``."""
+        if not self._event.wait(timeout):
+            raise TimeoutError("request not finished")
+        if self._error is not None:
+            raise self._error
+        return self._tokens
+
+    def ap_report(self, timeout: float | None = None) -> dict | None:
+        """Per-request AP accounting (None on the float path)."""
+        self.result(timeout)
+        return self._ap_report
+
+    def _finish(self, tokens=None, error: BaseException | None = None,
+                ap_report: dict | None = None) -> None:
+        self._tokens = tokens
+        self._error = error
+        self._ap_report = ap_report
+        self.latency_ms = 1e3 * (time.perf_counter() - self.submitted_at)
+        self._event.set()
+
+
+class _Active:
+    """Dispatcher-side state of one admitted request."""
+
+    def __init__(self, handle: RequestHandle, request: Request,
+                 sink: APSink | None):
+        self.handle = handle
+        self.request = request
+        self.sink = sink
+        self.profile: list[list[tuple]] | None = None   # last step's nodes
+        self.error: BaseException | None = None
+
+
+class BatchServer:
+    """Continuous-batching front end over one :class:`Engine`.
+
+    ``submit()`` enqueues; a dispatcher thread admits requests (admission
+    control above), then drives all in-flight requests in lockstep waves —
+    one model step per request per wave, AP graphs merged per graph call
+    via :class:`WaveMerger`.  Requests join mid-stream (continuous
+    batching: a new request's prefill steps ride the same waves as its
+    neighbors' decode steps) and retire as they finish.
+
+    With ``engine.ap_ctx is None`` the server still batches request
+    *scheduling* (queue, admission by ``max_inflight``, lockstep waves)
+    but each step runs the ordinary float path (the packed-matmul
+    kernels) with nothing to merge.
+    """
+
+    def __init__(self, engine: Engine, *,
+                 admission: AdmissionCfg | None = None,
+                 queue_maxsize: int = 0, wave_timeout: float = 120.0,
+                 slo: SLOCfg | None = None):
+        self.engine = engine
+        self.admission = admission or AdmissionCfg()
+        self.wave_timeout = wave_timeout
+        self.queue = IterableQueue(queue_maxsize)
+        self._pending: deque[RequestHandle] = deque()
+        self._active: list[_Active] = []
+        self.n_waves = 0
+        self.monitor = ServeMonitor(slo)
+        # a power SLO needs per-wave bank peaks, which cost a host sync
+        # inside the wave — only pay for it when asked
+        self._track_power = slo is not None and slo.peak_power_w is not None
+        self.n_admitted = 0
+        self.n_rejected = 0
+        self.n_queued = 0
+        self.max_queue_depth = 0
+        self._closed = False
+        self._last_profile: list[list[tuple]] | None = None
+        self._dispatcher = threading.Thread(target=self._dispatch,
+                                            name="ap-serve-dispatch",
+                                            daemon=True)
+        self._dispatcher.start()
+
+    # -- client side --------------------------------------------------------
+
+    def submit(self, prompts: np.ndarray, n_new: int,
+               cross_embeds=None) -> RequestHandle:
+        """Enqueue one request; returns a :class:`RequestHandle` future.
+
+        Raises ``RuntimeError`` once the server is closed or its
+        dispatcher has exited — a handle is only ever returned when the
+        request actually entered the queue, so no caller can block forever
+        on a future nothing will resolve."""
+        if self._closed or not self._dispatcher.is_alive():
+            raise RuntimeError("BatchServer is closed")
+        h = RequestHandle(prompts, n_new, cross_embeds)
+        try:
+            self.queue.put(h)
+        except ClosedQueue:
+            raise RuntimeError("BatchServer is closed") from None
+        return h
+
+    def close(self, wait: bool = True) -> None:
+        """Stop accepting requests; drain in-flight + queued work.
+
+        ``wait=True`` joins the dispatcher and then FAILS (never strands)
+        any handle that raced into the queue after the dispatcher exited,
+        so ``result()`` on every submitted handle eventually returns or
+        raises."""
+        if not self._closed:
+            self._closed = True
+            try:
+                self.queue.close()
+            except ClosedQueue:              # pragma: no cover - benign race
+                pass
+        if wait:
+            self._dispatcher.join()
+            self._fail_stranded(get_registry())
+
+    def __enter__(self) -> "BatchServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close(wait=True)
+
+    # -- dispatcher side ----------------------------------------------------
+
+    def _dispatch(self) -> None:
+        reg = get_registry()
+        try:
+            while True:
+                self._drain_submissions(block=not (self._active
+                                                   or self._pending))
+                self._admit(reg)
+                if not self._active:
+                    if self.queue.closed and self.queue.qsize() == 0 \
+                            and not self._pending:
+                        return
+                    if not self._pending:
+                        continue
+                    # pending-but-inadmissible with nothing active cannot
+                    # happen (an empty bank admits); defensive fall-through
+                    continue                 # pragma: no cover
+                self._run_wave(reg)
+                self._retire(reg)
+        finally:
+            # normal drain leaves nothing behind; a crashed dispatcher
+            # must not strand queued/active handles on never-set events
+            self._fail_stranded(reg)
+
+    def _fail_stranded(self, reg) -> None:
+        """Terminal cleanup: fail every handle still queued, pending, or
+        active with a clear error (idempotent; close() re-runs it after
+        join to catch submissions that raced the dispatcher's exit)."""
+        err = RuntimeError(
+            "BatchServer dispatcher exited before this request ran")
+        while True:
+            try:
+                self._pending.append(self.queue.get(timeout=0))
+            except (StopIteration, _queue.Empty):
+                break
+        for h in self._pending:
+            if not h.done:
+                h._finish(error=err)
+                reg.counter("serve.stranded").inc()
+        self._pending.clear()
+        for act in self._active:
+            if not act.handle.done:
+                act.handle._finish(error=err)
+                reg.counter("serve.stranded").inc()
+        self._active = []
+
+    def _drain_submissions(self, block: bool) -> None:
+        while True:
+            try:
+                item = self.queue.get(timeout=None if block else 0)
+            except StopIteration:
+                return
+            except _queue.Empty:
+                return
+            self._pending.append(item)
+            block = False
+
+    def _admissible(self, reg) -> bool:
+        if len(self._active) >= self.admission.max_inflight:
+            return False
+        mwc = self.admission.max_wave_cycles
+        if mwc is None or self.engine.ap_ctx is None:
+            return True
+        cand = self._last_profile
+        if cand is None:                 # no profile yet: let it define one
+            return not self._active
+        profiles = [a.profile or cand for a in self._active] + [cand]
+        pool = self.engine.ap_ctx.runtime.pool
+        cost = wave_cost_cycles(
+            profiles, n_arrays=pool.n_arrays, rows_per_array=pool.rows,
+            n_devices=getattr(pool, "n_devices", 1),
+            dead_arrays=getattr(pool, "dead_arrays", ()))
+        reg.gauge("serve.admission_wave_cycles").set(cost)
+        return cost <= mwc
+
+    def _admit(self, reg) -> None:
+        while self._pending:
+            if self._admissible(reg):
+                h = self._pending.popleft()
+                try:
+                    sink = (APSink(radix=self.engine.ap_ctx.radix)
+                            if self.engine.ap_ctx is not None else None)
+                    req = self.engine.new_request(h.prompts, h.n_new,
+                                                  h.cross_embeds)
+                except Exception as e:       # bad request: fail just it
+                    h._finish(error=e)
+                    continue
+                self._active.append(_Active(h, req, sink))
+                self.n_admitted += 1
+                reg.counter("serve.admitted").inc()
+            elif self.admission.policy == "reject":
+                h = self._pending.popleft()
+                h._finish(error=AdmissionRejected(
+                    "admission control: bank saturated "
+                    f"(inflight={len(self._active)}, "
+                    f"max_inflight={self.admission.max_inflight}, "
+                    f"max_wave_cycles={self.admission.max_wave_cycles})"))
+                self.n_rejected += 1
+                reg.counter("serve.rejected").inc()
+            else:
+                break                        # policy=queue: wait
+        # per-handle queued accounting: a request counts as "queued" once,
+        # the first time admission leaves it in the pending deque
+        for h in self._pending:
+            if not getattr(h, "_was_queued", False):
+                h._was_queued = True
+                self.n_queued += 1
+        self.max_queue_depth = max(self.max_queue_depth, len(self._pending))
+        reg.gauge("serve.inflight").set(len(self._active))
+        reg.gauge("serve.queued").set(len(self._pending))
+
+    def _run_wave(self, reg) -> None:
+        stepping = [a for a in self._active if not a.request.done]
+        if not stepping:
+            return
+        t0 = time.perf_counter()
+        ctx = self.engine.ap_ctx
+        merger = None
+        with trace.span("serve.wave", cat="serve", wave=self.n_waves,
+                        width=len(stepping)):
+            if ctx is None:
+                for act in stepping:
+                    self._step_float(act)
+            else:
+                # a lone request still goes through the merger (Barrier(1)
+                # passes immediately): one code path, and the wave records
+                # the step profile the admission oracle prices with
+                merger = WaveMerger(ctx.runtime, len(stepping),
+                                    timeout=self.wave_timeout,
+                                    track_power=self._track_power)
+                # pre-wave checkpoints: if ANY slot errors, the barrier
+                # breaks and every sibling sees WaveAborted mid-step —
+                # these snapshots are what lets them roll back and re-run
+                # solo instead of dying with the poison request
+                ckpts = [(act.request.checkpoint(),
+                          act.sink.checkpoint()) for act in stepping]
+                threads = [threading.Thread(
+                    target=self._step_merged,
+                    args=(act, ctx, merger, slot),
+                    name=f"ap-serve-w{self.n_waves}s{slot}", daemon=True)
+                    for slot, act in enumerate(stepping)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                for slot, act in enumerate(stepping):
+                    if act.error is None and merger.profiles[slot]:
+                        act.profile = merger.profiles[slot]
+                        self._last_profile = act.profile
+                self._recover_errored(reg, ctx, stepping, ckpts)
+        wave_ms = 1e3 * (time.perf_counter() - t0)
+        reg.histogram("serve.wave_ms").observe(wave_ms)
+        self.monitor.observe_wave(
+            wave_ms, inflight=len(stepping), queued=len(self._pending),
+            bank_peak_w=merger.last_wave_peak_w if merger is not None
+            else None)
+        for act in stepping:
+            if act.error is None and \
+                    act.request.pos > act.request.s_prompt:
+                reg.histogram("serve.decode_step_ms").observe(wave_ms)
+        self.n_waves += 1
+
+    def _step_float(self, act: _Active) -> None:
+        try:
+            with self.engine.device_scope():
+                act.request.step()
+        except BaseException as e:
+            act.error = e
+
+    def _recover_errored(self, reg, ctx, stepping, ckpts) -> None:
+        """Wave-abort blast-radius control (poison-request isolation).
+
+        Any act that errored inside a merged wave — its own failure, or
+        :class:`WaveAborted` collateral from a peer breaking the barrier —
+        rolls back to its pre-wave checkpoint and replays the step SOLO on
+        the dispatcher thread via the exact sequential serving path
+        (:func:`~repro_torch.apc.layers.ap_request_scope` with no merger), so
+        recovered siblings keep bit-identical tokens and stats.  Only a
+        request that fails its solo replay too keeps an error on its
+        handle; siblings and subsequent waves continue, on the (possibly
+        degraded) bank."""
+        errored = [(act, ck) for act, ck in zip(stepping, ckpts)
+                   if act.error is not None]
+        if not errored:
+            return
+        reg.counter("serve.wave_aborts").inc()
+        for act, (req_ck, sink_ck) in errored:
+            first = act.error
+            act.request.restore(req_ck)
+            act.sink.restore(sink_ck)
+            act.error = None
+            try:
+                with trace.span("serve.solo_rerun", cat="serve"), \
+                        self.engine.device_scope(), ap_serving(ctx), \
+                        ap_request_scope(act.sink):
+                    act.request.step()
+            except BaseException as e:
+                # deterministic failure: this is the poison request — it
+                # fails alone (the original wave error is chained for the
+                # handle's traceback)
+                if not isinstance(first, WaveAborted):
+                    e.__cause__ = first
+                act.error = e
+                reg.counter("serve.poisoned").inc()
+            else:
+                reg.counter("serve.solo_reruns").inc()
+
+    def _step_merged(self, act: _Active, ctx, merger: WaveMerger,
+                     slot: int) -> None:
+        try:
+            merger.bind(slot)
+            # worker threads start with a fresh context: enter the device
+            # and the AP hook themselves, route stats into this request's
+            # sink, and silence the (thread-unsafe) tracer — the dispatcher
+            # emits the wave/request spans single-threaded
+            with trace.disabled(), self.engine.device_scope(), \
+                    ap_serving(ctx), \
+                    ap_request_scope(act.sink, merger):
+                act.request.step()
+        except BaseException as e:
+            act.error = e
+            merger.abort()                  # never strand the peers
+
+    def _retire(self, reg) -> None:
+        still = []
+        for act in self._active:
+            if act.error is not None:
+                act.handle._finish(error=act.error)
+                reg.counter("serve.failed").inc()
+            elif act.request.done:
+                rep = None
+                if act.sink is not None and act.sink.n_graphs > 0:
+                    act.sink.flush()        # settle deferred counters
+                    rep = act.sink.report()
+                    pool = self.engine.ap_ctx.runtime.pool
+                    rep["n_arrays_total"] = getattr(
+                        pool, "total_arrays", pool.n_arrays)
+                act.handle._finish(tokens=act.request.tokens(),
+                                   ap_report=rep)
+                reg.counter("serve.requests").inc()
+                reg.histogram("serve.request_ms").observe(
+                    act.handle.latency_ms)
+                self.monitor.observe_request(
+                    act.handle.latency_ms,
+                    power_peak_w=(rep["power"]["peak_w"]
+                                  if rep and rep.get("power") else None))
+            else:
+                still.append(act)
+        self._active = still
+        reg.gauge("serve.inflight").set(len(self._active))

@@ -728,3 +728,95 @@ def test_plain_packed_mlp_launches_nothing(dev):
             cfg, params, cache, toks[:, 0], 0))
     assert moved == moved_dec == {"ternary_matmul": 0,
                                   "ternary_matmul_tc": 0}
+
+
+# ---------------------------------------------------------------------------
+# AP-backed serving on the card (the tiny engine of tests/test_torch_serve.py
+# in fp32, weights drawn on the CPU and moved)
+# ---------------------------------------------------------------------------
+
+def _tiny_ap_engine(device, params_cpu, cfg):
+    from repro_torch.models import model
+    from repro_torch.serve import Engine, ServeCfg
+    params = model._tree_map(lambda t, _: t.to(device), params_cpu)
+    ctx = apc.APServeContext(apc.Runtime(apc.ArrayPool(
+        n_arrays=4, rows=64, cols=64, device=device)), x_levels=7)
+    return Engine(cfg, params, ServeCfg(max_len=10), ap_ctx=ctx,
+                  device=device)
+
+
+@pytest.fixture(scope="module")
+def tiny_fp32():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model
+    from repro_torch.models.quant import quantize_model_params
+    base = get_smoke_config("qwen3-0.6b")
+    cfg = base.with_(n_layers=2, d_model=16, d_ff=24, n_heads=2,
+                     n_kv_heads=2, head_dim=8, vocab=32,
+                     compute_dtype="float32",
+                     ternary=base.ternary.__class__(enabled=True))
+    return cfg, model.cast_params(cfg, quantize_model_params(
+        model.init_params(cfg, seed=0, device="cpu")))
+
+
+def test_ap_engine_card_matches_cpu(dev, tiny_fp32):
+    """Tokens and APStats of AP serving on the card equal the CPU's (the
+    program kernel against its plain version, through the whole engine)."""
+    cfg, params = tiny_fp32
+    prompt = np.array([[3, 5, 7]], np.int32)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        eng = _tiny_ap_engine(where, params, cfg)
+        before = kernel.launch_counts["tap_run_program"]
+        toks = eng.generate(prompt, 3)
+        rep = eng.ap_report()
+        out.append((toks, rep,
+                    kernel.launch_counts["tap_run_program"] - before))
+    (card_toks, card_rep, launched), (cpu_toks, cpu_rep, _) = out
+    np.testing.assert_array_equal(card_toks, cpu_toks)
+    for key in ("sets", "resets", "write_cycles", "compare_cycles",
+                "energy_total_j", "n_graphs", "n_programs",
+                "makespan_cycles", "sequential_cycles"):
+        assert card_rep[key] == cpu_rep[key], key
+    assert launched == card_rep["n_programs"] and card_rep["n_graphs"] == 20
+
+
+def test_ap_batched_matches_sequential_on_card(dev, tiny_fp32):
+    from repro_torch.serve import AdmissionCfg, BatchServer
+    cfg, params = tiny_fp32
+    prompts = [np.array([[1 + i, 2 + i, 3 + i]], np.int32) for i in range(3)]
+    eng = _tiny_ap_engine(dev, params, cfg)
+    seq = []
+    for p in prompts:
+        toks = eng.generate(p, 2)
+        seq.append((toks, eng.ap_report()))
+    with BatchServer(eng, admission=AdmissionCfg(max_inflight=4)) as srv:
+        handles = [srv.submit(p, 2) for p in prompts]
+        got = [(h.result(timeout=300), h.ap_report()) for h in handles]
+    for (bt, br), (st, sr) in zip(got, seq):
+        np.testing.assert_array_equal(bt, st)
+        for key in ("sets", "resets", "write_cycles", "compare_cycles",
+                    "energy_total_j", "n_graphs", "n_programs",
+                    "makespan_cycles", "sequential_cycles"):
+            assert br[key] == sr[key], key
+
+
+def test_current_ap_context_none_while_capturing(dev):
+    """Inside a CUDA graph capture the AP path is off (it syncs the host);
+    outside it the active context is returned."""
+    ctx = apc.APServeContext(apc.Runtime(apc.ArrayPool(
+        n_arrays=1, rows=64, cols=64, device=dev)))
+    seen = {}
+    x = torch.ones(4, device=dev)
+    with apc.ap_serving(ctx):
+        seen["before"] = apc.current_ap_context()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            seen["capturing"] = apc.current_ap_context()
+            y = x * 2
+        graph.replay()
+        seen["after"] = apc.current_ap_context()
+    assert seen["before"] is ctx and seen["after"] is ctx
+    assert seen["capturing"] is None
+    assert float(y.sum()) == 8.0

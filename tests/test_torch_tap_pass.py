@@ -111,6 +111,50 @@ def test_hist12_top_bin_saturates():
     assert int(hist.sum()) == 128 * n_compares   # every compare of every row
 
 
+def _random_slots(rng, slots, keys, ccols, wcols, cols):
+    """Random dense schedule tensors: -1 padded columns, invalid keys,
+    don't-care key digits, duplicate write columns."""
+    cmp_cols = rng.integers(-1, cols, (slots, ccols)).astype(np.int32)
+    key_digits = rng.integers(-1, 3, (slots, keys, ccols)).astype(np.int8)
+    key_valid = rng.random((slots, keys)) < 0.7
+    hist_flag = rng.random(slots) < 0.6
+    wr_cols = rng.integers(-1, cols, (slots, wcols)).astype(np.int32)
+    wr_vals = rng.integers(0, 3, (slots, wcols)).astype(np.int8)
+    return [torch.from_numpy(a) for a in (cmp_cols, key_digits, key_valid,
+                                          hist_flag, wr_cols, wr_vals)]
+
+
+@pytest.mark.parametrize("pack", [1, 2, 4])
+@pytest.mark.parametrize("masking", ["n_valid", "block_valid"])
+@pytest.mark.parametrize("stats", [True, False])
+def test_program_plain_numpy_body_matches_torch_body(pack, masking, stats):
+    """CPU tensors replay in NumPy, card tensors in PyTorch ops: the two
+    bodies of run_program_plain give the same digits and counter rows on
+    random schedules (no tolerance)."""
+    rng = np.random.default_rng(pack * 10 + (masking == "n_valid"))
+    for trial in range(6):
+        block_rows, n_blocks, cols = 16, 3, 9
+        rows = block_rows * n_blocks
+        sched = _random_slots(rng, pack * int(rng.integers(1, 12)),
+                              int(rng.integers(1, 4)),
+                              int(rng.integers(1, 5)),
+                              int(rng.integers(1, 4)), cols)
+        arr = torch.from_numpy(rng.integers(-1, 3, (rows, cols))
+                               .astype(np.int8))
+        kw = dict(block_rows=block_rows, collect_stats=stats, pack=pack,
+                  block_valid=None if masking == "n_valid" else tuple(
+                      int(v) for v in rng.integers(0, block_rows + 1,
+                                                   n_blocks)))
+        n_valid = int(rng.integers(0, rows + 1))
+        got = ref._run_program_numpy(arr, *sched, n_valid, **kw)
+        want = ref._run_program_torch(arr, *sched, n_valid, **kw)
+        assert torch.equal(got[0], want[0]), trial
+        if stats:
+            assert torch.equal(got[1], want[1]), trial
+        else:
+            assert got[1] is None and want[1] is None
+
+
 def test_dup_write_cols_charge_every_change():
     """Serial same-column writes: writing 1 then 2 charges both changes
     wherever the cell held neither."""
