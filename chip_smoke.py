@@ -96,6 +96,22 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
       against a ``decode_step`` loop (84 ``ternary_matmul`` a step).  Host
       ms, program-kernel ms (CUDA events around each launch), ``APLinear``
       build ms, launches, cycles, Table XI energy and makespan per step.
+   f. Training (``repro_torch.train``), qwen3-0.6b at its published width,
+      fp32 master weights; no kernel lies on this path (launches 0).
+      ``launch.train.main`` at its defaults (batch 8 x 128, lr 3e-4, bf16
+      compute, remat "dots") for 10 steps at all 28 layers: every loss
+      finite, ms per step (host clock, median of steps 3-10), tokens/s,
+      peak memory and the model-FLOPs share of the bf16 peak; 10 steps on
+      one batch, whose loss must fall; one step at each remat policy (ms,
+      peak memory, a profile of "none" and "dots").  At 2 layers: one step
+      on the card against the CPU (fp32, TF32 off; loss and grad_norm
+      within 1e-5 relative, every grad leaf within 1e-4 of its max|g|,
+      AdamW on identical grads within 1e-6; with QAT too), and resume
+      (4 straight steps against 2, a checkpoint, a fresh ``train_loop``
+      and 2 more) bit for bit under deterministic algorithms.  At 28
+      layers, fp32: the TernGrad step on ``[cuda:0]`` and ``[cuda:0,
+      cuda:0]``, its loss against the uncompressed loss within 1e-5 and
+      the replicas bit-identical.
 4. Times: CUDA-event medians of each kernel, its plain version and, for the
    matmul, the library product on a dense weight, beside each kernel's
    bound, at the main paths' shapes (and qwen2-72b's MLP width for the
@@ -234,6 +250,23 @@ AP_SERVE_MOE_POOL = (4, 64, 64)
 # fewer slots than a MAC tile program at 650 columns has (24329 at K = 64):
 # a fold (reduction) program, 2850 slots for w1's 16 partials
 MAC_TILE_MIN_SLOTS = 5000
+# phase 3f: training qwen3-0.6b at its published width, the launcher's
+# defaults (src/repro/launch/train.py: batch 8, sequence 128, lr 3e-4);
+# step times are the median of steps 3 to TRAIN_STEPS; the card-against-CPU
+# and resume checks run TRAIN_SHORT_LAYERS layers (the CPU's step at batch
+# TRAIN_CPU_SHAPE), compressed DP all 28 for TRAIN_DP_STEPS steps.
+# Tolerances: loss and grad_norm relative, a grad leaf against its own
+# max|g|, AdamW allclose (atol = rtol)
+TRAIN_STEPS = 10
+TRAIN_TIMED = slice(2, TRAIN_STEPS)
+TRAIN_FIXED_STEPS = 10
+TRAIN_SHAPE = (8, 128)
+TRAIN_SHORT_LAYERS = 2
+TRAIN_CPU_SHAPE = (2, 128)
+TRAIN_DP_STEPS = 3
+TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "adamw": 1e-6}
+# the remat policies whose step is profiled: the config's, and none
+TRAIN_PROFILED = ("none", "dots")
 # ternary-matmul timings: (model, K, N, M), K x N the model's w1
 MATMUL_TIMES = tuple(("qwen3-0.6b", *QWEN3_06B, m)
                     for m in (1, 4, 8, 16, 2048)) + \
@@ -1499,7 +1532,8 @@ def model_serve(cfg, routes, prompts, n_new, max_len, n_mlp, card,
     scratch = model.init_cache(cfg, b, max_len, dtype=cache_dtype,
                                device=prompts.device)
     res["serve"]["step_profile"] = profile_step(lambda: model.decode_step(
-        cfg, routes["kernel"], scratch, tok, n_steps), name, card, log)
+        cfg, routes["kernel"], scratch, tok, n_steps),
+        f"decode {name} kernel route", card, log)
     for route, v in res["serve"]["median_step_ms"].items():
         dev_part = (f"; the device alone {device_ms[route]:.3f} ms (a CUDA "
                     f"graph of the step), {100 * device_ms[route] / v:.1f} %"
@@ -2045,6 +2079,353 @@ def float_route(cfg, params, dev, card, log) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3f: training, qwen3-0.6b
+# ---------------------------------------------------------------------------
+
+def train_tmpdir() -> str:
+    """A fresh directory for checkpoints under the checkout's build/."""
+    import tempfile
+    base = os.path.join(ROOT, "build")
+    os.makedirs(base, exist_ok=True)
+    return tempfile.mkdtemp(prefix="chip_smoke_train_", dir=base)
+
+
+def train_batch(cfg, batch: int, seq: int, step: int, seed: int, dev):
+    import torch
+    from repro_torch.data import DataCfg, TokenSource
+    arrays = TokenSource(DataCfg(vocab=cfg.vocab, global_batch=batch,
+                                 seq_len=seq, seed=seed)).batch_at(step)
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def timed_step(step, state, batch) -> tuple:
+    """(state, metrics, host ms, loss) of one step: host clock from a
+    synchronised start to the loss on the host."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    return state, metrics, (time.perf_counter() - t0) * 1e3, loss
+
+
+def phase_train_path(dev, card: str, log) -> dict:
+    """qwen3-0.6b training at its published width: (a) the launcher at
+    full depth, a fixed batch, the three remat policies; (b) a step on the
+    card against the CPU; (c) resume exactness; (d) compressed DP."""
+    import torch
+    from repro_torch.configs import get_config
+    torch.cuda.init()                # the allocator, for its peak counters
+    base = get_config(MODEL_ARCH)
+    res: dict = {"arch": MODEL_ARCH, "card": card}
+    res["launcher"] = train_launcher(base, dev, card, log)
+    torch.cuda.empty_cache()
+    res["card_vs_cpu"] = train_card_vs_cpu(base, dev, card, log)
+    torch.cuda.empty_cache()
+    res["resume"] = train_resume(base, dev, card, log)
+    torch.cuda.empty_cache()
+    res["compressed_dp"] = train_compressed_dp(base, dev, card, log)
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_launcher(base, dev, card: str, log) -> dict:
+    """(a) ``launch.train.main`` at its defaults for TRAIN_STEPS steps at
+    full width and depth (bf16 compute, remat "dots"), then
+    TRAIN_FIXED_STEPS on one batch, then one step at each remat policy."""
+    import shutil
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    b, s = TRAIN_SHAPE
+    ckpt = train_tmpdir()
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        summary = launch_train.main(["--arch", MODEL_ARCH, "--steps",
+                                     str(TRAIN_STEPS), "--ckpt-dir", ckpt])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(not os.listdir(ckpt), "the launcher saved a checkpoint")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = summary["losses"]
+    check(len(losses) == TRAIN_STEPS and all(
+        np.isfinite(x) for x in losses), f"launcher losses {losses}")
+    state = ts.init_train_state(base, seed=SEED, device=dev)
+    n_params = sum(p.numel() for p in opt.tree_leaves(state["params"]))
+    ms = statistics.median(summary["step_seconds"][TRAIN_TIMED]) * 1e3
+    tokens = b * s
+    flops = 6 * n_params * tokens
+    bound_ms = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    res = {"steps": TRAIN_STEPS, "batch": b, "seq": s,
+           "n_params": n_params, "losses": losses, "wall_s": wall,
+           "step_ms": [x * 1e3 for x in summary["step_seconds"]],
+           "ms": ms, "tokens_per_s": tokens / (ms / 1e3),
+           "peak_bytes": peak, "model_flops": flops, "bound_ms": bound_ms,
+           "flops_share": bound_ms / ms,
+           "stragglers": summary["stragglers"]}
+    log(f"  launcher: {MODEL_ARCH} {base.n_layers} layers, d_model "
+        f"{base.d_model}, vocab {base.vocab}, {n_params} parameters "
+        f"(fp32 master, {base.compute_dtype} compute, remat "
+        f"{base.remat}), batch {b} x {s}, {TRAIN_STEPS} steps in "
+        f"{wall:.3f} s: first loss {losses[0]:.4f} (ln {base.vocab} = "
+        f"{np.log(base.vocab):.4f}), last {losses[-1]:.4f}, stragglers "
+        f"{summary['stragglers']}")
+    log(f"  time train step {ms:.3f} ms (host clock, synchronised, median "
+        f"of steps 3-{TRAIN_STEPS}), {res['tokens_per_s']:.0f} tokens/s, "
+        f"peak memory {peak / 2**30:.3f} GiB, model FLOPs 6·N·tokens = "
+        f"{flops:.4e}: bound {bound_ms:.3f} ms at "
+        f"{PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16, FLOPs share "
+        f"{100 * res['flops_share']:.2f} %, card {card}")
+
+    opt_cfg = opt.AdamWCfg(lr=3e-4, total_steps=TRAIN_FIXED_STEPS,
+                           warmup_steps=1)
+    step = ts.make_train_step(base, opt_cfg)
+    batch = train_batch(base, b, s, 0, SEED, dev)
+    fixed = []
+    st = state
+    for _ in range(TRAIN_FIXED_STEPS):
+        st, _, _, loss = timed_step(step, st, batch)
+        fixed.append(loss)
+    del st
+    res["fixed_batch_losses"] = fixed
+    log(f"  fixed batch, {TRAIN_FIXED_STEPS} steps: loss "
+        + " ".join(f"{x:.4f}" for x in fixed) + f", card {card}")
+    check(all(np.isfinite(x) for x in fixed) and fixed[-1] < fixed[0],
+          f"the fixed-batch loss did not fall: {fixed}")
+
+    res["remat"] = {}
+    for remat in ("none", "dots", "full"):
+        step = ts.make_train_step(base.with_(remat=remat), opt_cfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, _, ms_r, loss = timed_step(step, state, batch)
+        peak_r = torch.cuda.max_memory_allocated(dev)
+        res["remat"][remat] = {"ms": ms_r, "peak_bytes": peak_r,
+                               "loss": loss}
+        log(f"  remat {remat}: one step {ms_r:.3f} ms (host clock, "
+            f"synchronised), peak memory {peak_r / 2**30:.3f} GiB (the "
+            f"state's {4 * 3 * n_params / 2**30:.3f} GiB included), loss "
+            f"{loss:.6f}, card {card}")
+        if remat in TRAIN_PROFILED:
+            res["remat"][remat]["profile"] = profile_step(
+                lambda: float(step(state, batch)[1]["loss"]),
+                f"train step remat {remat}", card, log)
+    grads = ts.value_and_grad(ts.make_loss_fn(base), state["params"],
+                              batch)[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.adamw_update(opt_cfg, grads, state["opt"], state["params"])
+    torch.cuda.synchronize()
+    res["adamw_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"  time adamw_update alone {res['adamw_ms']:.3f} ms (host clock, "
+        f"synchronised; {len(opt.tree_leaves(grads))} leaves, "
+        f"{n_params} parameters), card {card}")
+    del grads
+    losses_r = [v["loss"] for v in res["remat"].values()]
+    check(max(losses_r) - min(losses_r) <= TRAIN_TOL["loss"] * losses_r[0],
+          f"the remat policies' losses differ: {losses_r}")
+    return res
+
+
+def train_card_vs_cpu(base, dev, card: str, log) -> dict:
+    """(b) One step of the same state and batch on the card and on the CPU
+    at full width, TRAIN_SHORT_LAYERS layers, fp32 compute (TF32 off):
+    loss, grad_norm, every grad leaf and AdamW on identical grads."""
+    import torch
+    from repro_torch.configs.base import TernaryCfg
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    cpu = torch.device("cpu")
+    cfg = base.with_(n_layers=TRAIN_SHORT_LAYERS, compute_dtype="float32")
+    cpu_state = ts.init_train_state(cfg, seed=SEED + 1, device=cpu)
+    card_state = opt.tree_map(lambda t: t.to(dev), cpu_state)
+    b, s = TRAIN_CPU_SHAPE
+    cpu_batch = train_batch(cfg, b, s, 0, SEED + 1, cpu)
+    card_batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+    opt_cfg = opt.AdamWCfg(lr=3e-4, total_steps=10, warmup_steps=1)
+    res = {}
+    for qat in (False, True):
+        c = cfg.with_(ternary=TernaryCfg(qat=qat))
+        fn = ts.make_loss_fn(c)
+        t0 = time.perf_counter()
+        loss_c, g_c = ts.value_and_grad(fn, cpu_state["params"], cpu_batch)
+        cpu_s = time.perf_counter() - t0
+        loss_d, g_d = ts.value_and_grad(fn, card_state["params"],
+                                        card_batch)
+        gn_c, gn_d = opt.global_norm(g_c), opt.global_norm(g_d)
+        loss_err = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+        gn_err = abs(float(gn_d) - float(gn_c)) / float(gn_c)
+        worst = max(float((a.cpu() - w).abs().max()) / float(w.abs().max())
+                    for a, w in zip(opt.tree_leaves(g_d),
+                                    opt.tree_leaves(g_c)))
+        # AdamW on identical grads: the CPU's, on both devices
+        new_c, opt_c, _ = opt.adamw_update(opt_cfg, g_c, cpu_state["opt"],
+                                           cpu_state["params"])
+        new_d, opt_d, _ = opt.adamw_update(
+            opt_cfg, opt.tree_map(lambda t: t.to(dev), g_c),
+            card_state["opt"], card_state["params"])
+        adamw_err, adamw_ok = 0.0, True
+        for got, want in ((new_d, new_c), (opt_d["m"], opt_c["m"]),
+                          (opt_d["v"], opt_c["v"])):
+            for a, w in zip(opt.tree_leaves(got), opt.tree_leaves(want)):
+                e, ok = allclose_err(a.cpu(), w, TRAIN_TOL["adamw"])
+                adamw_err, adamw_ok = max(adamw_err, e), adamw_ok and ok
+        key = "qat" if qat else "fp32"
+        res[key] = {"loss": float(loss_d), "loss_rel_err": loss_err,
+                    "grad_norm": float(gn_d), "grad_norm_rel_err": gn_err,
+                    "grad_worst_of_max": worst, "adamw_max_abs_err":
+                    adamw_err, "cpu_s": cpu_s}
+        log(f"  card vs CPU{' (qat)' if qat else ''}: {TRAIN_SHORT_LAYERS} "
+            f"layers at full width, fp32, batch {b} x {s}: loss "
+            f"{float(loss_d):.6f} rel err {loss_err:.3e} (limit "
+            f"{TRAIN_TOL['loss']}), grad_norm {float(gn_d):.6f} rel err "
+            f"{gn_err:.3e} (limit {TRAIN_TOL['loss']}), worst grad leaf "
+            f"max|d| / max|g| {worst:.3e} (limit {TRAIN_TOL['grad']}), "
+            f"adamw on identical grads max_abs_err {adamw_err:.3e} "
+            f"(allclose {TRAIN_TOL['adamw']}); CPU step {cpu_s:.3f} s, "
+            f"card {card}")
+        check(loss_err <= TRAIN_TOL["loss"], f"card vs CPU {key}: loss")
+        check(gn_err <= TRAIN_TOL["loss"], f"card vs CPU {key}: grad_norm")
+        check(worst <= TRAIN_TOL["grad"], f"card vs CPU {key}: grads")
+        check(adamw_ok, f"card vs CPU {key}: adamw_update")
+    return res
+
+
+def train_resume(base, dev, card: str, log) -> dict:
+    """(c) 4 straight steps against 2, a checkpoint, a fresh
+    ``train_loop`` that resumes, and 2 more, at full width and
+    TRAIN_SHORT_LAYERS layers, under deterministic algorithms: the state
+    bit-identical (or, if an op had no deterministic path, within 1e-6,
+    and the op named)."""
+    import shutil
+    import warnings
+    import torch
+    from repro_torch.data import DataCfg, TokenSource
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.runtime import RunCfg, train_loop
+
+    cfg = base.with_(n_layers=TRAIN_SHORT_LAYERS)
+    b, s = TRAIN_SHAPE
+    src = TokenSource(DataCfg(vocab=cfg.vocab, global_batch=b, seq_len=s,
+                              seed=SEED))
+    step = ts.make_train_step(cfg, opt.AdamWCfg(lr=3e-4, total_steps=4,
+                                                warmup_steps=1))
+
+    def run(n: int, ckpt_dir: str) -> RunCfg:
+        return RunCfg(total_steps=n, ckpt_dir=ckpt_dir, ckpt_every=100,
+                      log_every=100)
+
+    dirs = [train_tmpdir() for _ in range(2)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            straight, _ = train_loop(run(4, dirs[0]), ts.init_train_state(
+                cfg, seed=SEED, device=dev), step, src)
+            half, _ = train_loop(run(2, dirs[1]), ts.init_train_state(
+                cfg, seed=SEED, device=dev), step, src)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = ckpt.save(dirs[1], 2, half)
+            save_s = time.perf_counter() - t0
+            n_bytes = sum(os.path.getsize(os.path.join(r, f))
+                          for r, _, fs in os.walk(path) for f in fs)
+            t0 = time.perf_counter()
+            back = ckpt.restore(dirs[1], 2, device=dev)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(all(torch.equal(a, w) for a, w in zip(
+                opt.tree_leaves(back), opt.tree_leaves(half))),
+                "the restored checkpoint differs from the saved state")
+            del back, half
+            resumed, summary = train_loop(run(4, dirs[1]), None, step, src,
+                                          device=dev)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    pairs = list(zip(opt.tree_leaves(resumed), opt.tree_leaves(straight)))
+    identical = all(torch.equal(a, w) for a, w in pairs)
+    max_err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in pairs)
+    res = {"bit_identical": identical, "max_abs_err": max_err,
+           "nondeterministic_ops": nondet, "ckpt_bytes": n_bytes,
+           "save_s": save_s, "restore_s": restore_s,
+           "resumed_losses": summary["losses"]}
+    log(f"  resume: {TRAIN_SHORT_LAYERS} layers at full width, 4 straight "
+        f"steps against 2 + checkpoint + resume + 2: params and AdamW "
+        f"state {'bit-identical' if identical else 'not bit-identical'} "
+        f"(max_abs_err {max_err:.3e}); ops without a deterministic CUDA "
+        f"path: {nondet or 'none'}; checkpoint {n_bytes} bytes, save "
+        f"{save_s:.3f} s, restore {restore_s:.3f} s, card {card}")
+    if nondet:
+        check(max_err <= 1e-6, "resume: state further than 1e-6")
+    else:
+        check(identical, "resume: state not bit-identical")
+    return res
+
+
+def train_compressed_dp(base, dev, card: str, log) -> dict:
+    """(d) The TernGrad step at full width and depth (fp32 compute, so
+    that halves of the batch give the full batch's loss to 1e-5) on
+    meshes [dev] and [dev, dev], TRAIN_DP_STEPS steps each: the loss
+    against the uncompressed loss on the same state and batch, and the
+    replicas bit-identical."""
+    import torch
+    from repro_torch.train import compression as comp
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    cfg = base.with_(compute_dtype="float32")
+    b, s = TRAIN_SHAPE
+    opt_cfg = opt.AdamWCfg(lr=3e-4, total_steps=TRAIN_DP_STEPS,
+                           warmup_steps=1)
+    loss_fn = ts.make_loss_fn(cfg)
+    res = {}
+    for mesh in ([dev], [dev, dev]):
+        step = comp.make_compressed_dp_step(cfg, mesh, opt_cfg)
+        replicas = comp.replicate(ts.init_train_state(cfg, seed=SEED,
+                                                      device=dev), mesh)
+        errs, ms = [], []
+        for i in range(TRAIN_DP_STEPS):
+            batch = train_batch(cfg, b, s, i, SEED, dev)
+            with torch.no_grad():
+                want = float(loss_fn(replicas[0]["params"], batch))
+            replicas, _, ms_i, loss = timed_step(step, replicas, batch)
+            errs.append(abs(loss - want) / abs(want))
+            ms.append(ms_i)
+        same = all(torch.equal(a, w) for r in replicas[1:] for a, w in zip(
+            opt.tree_leaves(r["params"]), opt.tree_leaves(
+                replicas[0]["params"])))
+        wire = comp.wire_bytes(replicas[0]["params"])
+        key = f"x{len(mesh)}"
+        res[key] = {"loss_rel_err": errs, "replicas_identical": same,
+                    "wire_bytes": wire, "ms": ms}
+        log(f"  compressed DP on {len(mesh)} replica(s) of {dev}: "
+            f"{TRAIN_DP_STEPS} steps at full width and depth, fp32, loss "
+            f"against the uncompressed loss on the same state and batch, "
+            f"rel err {max(errs):.3e} (limit {TRAIN_TOL['loss']}); "
+            f"replicas {'bit-identical' if same else 'differ'}; wire "
+            f"{wire:.0f} bytes a step (int8 codes; fp32 grads "
+            f"{4 * wire:.0f}); steps "
+            + " ".join(f"{x:.1f}" for x in ms) + f" ms, card {card}")
+        check(max(errs) <= TRAIN_TOL["loss"], f"compressed DP {key}: loss")
+        check(same, f"compressed DP {key}: replicas differ")
+        del replicas
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -2374,8 +2755,9 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
 
 
 def profile_step(step, name: str, card: str, log) -> dict:
-    """One decode step under ``torch.profiler``: the CUDA kernels it ran,
-    their device time and the five that took the most."""
+    """One step (a decode step, a train step) under ``torch.profiler``:
+    the CUDA kernels it ran, their device time and the five that took the
+    most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2393,7 +2775,7 @@ def profile_step(step, name: str, card: str, log) -> dict:
            "top": [{"name": r.key[:80], "count": r.count,
                     "device_ms": r.self_device_time_total / 1e3}
                    for r in top]}
-    log(f"  profile decode {name} kernel route: {out['kernels']} CUDA "
+    log(f"  profile {name}: {out['kernels']} CUDA "
         f"kernels, {out['device_ms']:.3f} ms of device time (torch.profiler"
         f", one step), card {card}")
     for r in out["top"]:
@@ -2430,6 +2812,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement here")
     args = parser.parse_args()
+    # phase 3f's resume check runs cuBLAS deterministically, which needs
+    # this before the first CUDA call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError as e:
@@ -2529,9 +2914,14 @@ def main() -> int:
             lambda dev, log: phase_ap_serve_path(dev, card, log),
             ("tap_run_program", "ternary_matmul"))
         log(f"  phase 3e took {report['ap_serve_path']['seconds']:.3f} s")
+        log("[main path: qwen3-0.6b at full width and depth, training]")
+        report["train_path"] = main_path(
+            "qwen3-0.6b training",
+            lambda dev, log: phase_train_path(dev, card, log), ())
+        log(f"  phase 3f took {report['train_path']['seconds']:.3f} s")
         launches = {k: sum(report[p]["launches"][k] for p in (
             "main_path", "matmul_path", "pool_path", "model_path",
-            "ap_serve_path")) for k in KERNELS}
+            "ap_serve_path", "train_path")) for k in KERNELS}
 
         log("[times]")
         report["times"] = phase_times(dev, card, log)

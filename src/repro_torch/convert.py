@@ -6,8 +6,9 @@ schedule tensors, and :func:`ap_stats_from_fields` rebuilds an
 :class:`APStats` from the reference's fields: the two are what a test needs
 to run the same program through both executors and compare the results.
 :func:`packed_mlp_from_arrays` carries packed ternary MLP weights across,
-so both packages multiply by the same words and scales, and
-:func:`params_from_arrays` a whole model's parameter tree.
+so both packages multiply by the same words and scales,
+:func:`params_from_arrays` a whole model's parameter tree, and
+:func:`train_state_from_arrays` a train state (params and AdamW state).
 """
 from __future__ import annotations
 
@@ -95,3 +96,18 @@ def params_from_arrays(tree: dict, device=None) -> dict:
 
     return {k: params_from_arrays(v, dev) if isinstance(v, dict) else leaf(v)
             for k, v in tree.items()}
+
+
+def train_state_from_arrays(state: dict, device=None) -> dict:
+    """The reference's train state (``init_train_state`` or a step's
+    output) as the port's: ``params``, ``opt/m`` and ``opt/v`` through
+    :func:`params_from_arrays` (fp32), ``opt/step`` an int32 scalar, on
+    ``device`` (``None`` = ``cuda:0``).  Leaves are numpy arrays (bf16
+    leaves through fp32)."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    return {"params": params_from_arrays(state["params"], dev),
+            "opt": {"m": params_from_arrays(opt["m"], dev),
+                    "v": params_from_arrays(opt["v"], dev),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=dev)}}

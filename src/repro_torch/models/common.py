@@ -3,7 +3,7 @@
 Parameters are plain nested dicts of tensors, in the reference's tree, so
 weights carry across by a plain tree walk (:func:`repro_torch.convert.
 params_from_arrays`).  The reference's path-based partition rules shard
-over a TPU mesh; they go with ``launch/`` (ROADMAP queue 1, item 10).
+over a TPU mesh; they go with ``launch/`` (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 

@@ -4,18 +4,27 @@ The parameter tree is the reference's: the layer stack lives under
 ``stack/pos_i`` (one entry per position of the config's layer pattern,
 each leaf with a leading axis of ``n_sb`` super-blocks), layers that do not
 fill a whole super-block under ``rest_j``, an encoder under ``enc_stack`` /
-``enc_norm``.  Here the stack is a Python loop over that leading axis.
+``enc_norm``.  Here the stack is a Python loop over that leading axis,
+each super-block (one repetition of the layer pattern) under the
+activation-checkpoint policy ``cfg.remat`` (:func:`remat_wrap`) while
+autograd records.
 
 The reference casts every block's float leaves and the embedding table to
 the compute dtype inside each call, where XLA fuses the casts.  Eagerly on
 the card that would re-read every fp32 weight at every step, so the port
 casts once: :func:`cast_params` after loading, and :func:`forward` /
 :func:`decode_step` take the cast tree (and refuse another).  Callers run
-them under ``torch.inference_mode()``.
+them under ``torch.inference_mode()``; training differentiates
+``forward(cfg, cast_params(cfg, params), batch)`` through the cast
+(:mod:`repro_torch.train.train_step`).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -36,6 +45,37 @@ def _layer_plan(cfg: ModelConfig) -> tuple[int, list[tuple[str, str]], int]:
     n_sb = cfg.n_layers // period
     n_rest = cfg.n_layers - n_sb * period
     return n_sb, pattern, n_rest
+
+
+# "dots": the products without batch dimensions (the projections, x @ w on
+# [B, S, d] folds to one mm) are saved, the rest is recomputed
+_DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` (a super-block body, ``x`` first) under ``cfg.remat``:
+    ``"none"`` the function itself; ``"full"`` saves nothing and recomputes
+    the body in the backward pass; ``"dots"`` saves the ``aten.mm`` /
+    ``aten.addmm`` products and recomputes the batched products and the
+    elementwise ops, as ``checkpoint_dots_with_no_batch_dims`` does.  The
+    three give the same grads.  Where autograd does not record (``x``
+    needs no grad, or under ``inference_mode``) every policy runs ``fn``
+    as is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        kw = {}
+    elif cfg.remat == "dots":
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _DOTS_SAVED)}
+    else:
+        raise ValueError(f"remat={cfg.remat!r}: not none, dots or full")
+
+    def wrapped(x, *args):
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return fn(x, *args)
+        return checkpoint(fn, x, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def _tree_map(fn, tree: dict, path: str = "") -> dict:
@@ -158,15 +198,20 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, positions,
     n_sb, pattern, n_rest = _layer_plan(cfg)
     if prefix == "enc_":
         n_sb, pattern, n_rest = cfg.enc_layers, [("attn", "mlp")], 0
+
+    def sb_body(x, sb_params):
+        for i, (mk, fk) in enumerate(pattern):
+            x = blk.block_forward(sb_params[i], x, cfg, mk, fk, positions,
+                                  causal=causal, enc_out=enc_out)
+        return x
+
+    body = remat_wrap(sb_body, cfg)
     stack_key = prefix + "stack"
     if stack_key in params and n_sb > 0:
         per_pos = [_unstack(params[stack_key][f"pos_{i}"], n_sb)
                    for i in range(len(pattern))]
         for sb in range(n_sb):
-            for i, (mk, fk) in enumerate(pattern):
-                x = blk.block_forward(per_pos[i][sb], x, cfg, mk, fk,
-                                      positions, causal=causal,
-                                      enc_out=enc_out)
+            x = body(x, [p[sb] for p in per_pos])
     for j in range(n_rest):
         mk, fk = pattern[j % len(pattern)]
         x = blk.block_forward(params[f"rest_{j}"], x, cfg, mk, fk,

@@ -16,7 +16,10 @@ from repro_torch.core import ap, build_lut_nonblocked
 from repro_torch.core import truth_tables as tt
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.tap_pass import kernel, ops
+from repro_torch.launch import mesh as launch_mesh
+from repro_torch.launch import train as launch_train
 from repro_torch.models import model
+from repro_torch.train import checkpoint, train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -24,16 +27,19 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 
 def _forbidden(name: str) -> bool:
+    """JAX, the reference, and ml_dtypes (the card's machine has none)."""
     top = name.split(".")[0]
-    return top == "jax" or top.startswith("jax") or top == "repro"
+    return top.startswith("jax") or top in ("repro", "ml_dtypes")
 
 
 def test_import_loads_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.apc, repro_torch.convert, "
             "repro_torch.kernels.tap_pass, repro_torch.configs, "
-            "repro_torch.models.model; "
-            "bad = [m for m in sys.modules if m.split('.')[0] == 'repro' "
-            "or m.split('.')[0].startswith('jax')]; print(bad); "
+            "repro_torch.models.model, repro_torch.train, repro_torch.data, "
+            "repro_torch.launch.train, repro_torch.launch.mesh; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('repro', 'ml_dtypes') or m.split('.')[0].startswith('jax')]; "
+            "print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -56,7 +62,7 @@ def test_no_jax_or_reference_imports(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """Without a card, device=None raises instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     arr = np.zeros((8, 9), np.int8)
@@ -74,7 +80,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
              lambda: apc.execute_sharded(arr, compiled, [None, None]),
              lambda: apc.run(arr, compiled, mesh=[None]),
              lambda: model.init_params(get_smoke_config("qwen3-0.6b")),
-             lambda: model.init_cache(get_smoke_config("qwen3-0.6b"), 1, 8)]
+             lambda: model.init_cache(get_smoke_config("qwen3-0.6b"), 1, 8),
+             lambda: train_step.init_train_state(
+                 get_smoke_config("qwen3-0.6b")),
+             lambda: checkpoint.restore(str(tmp_path), 1),
+             lambda: launch_mesh.make_elastic_mesh(),
+             lambda: launch_train.main(["--arch", "qwen3-0.6b", "--smoke",
+                                        "--steps", "1", "--ckpt-dir",
+                                        str(tmp_path)])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
