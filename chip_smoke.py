@@ -112,6 +112,21 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
       layers, fp32: the TernGrad step on ``[cuda:0]`` and ``[cuda:0,
       cuda:0]``, its loss against the uncompressed loss within 1e-5 and
       the replicas bit-identical.
+   g. The named mesh (``repro_torch.launch.mesh``, ``models.sharded``):
+      a 1-rank NCCL group (a ``FileStore`` in a temporary directory) and a
+      (data=1, model=1) ``DeviceMesh`` on the card.  qwen3-0.6b at full
+      width and depth (phase 3f's batch 8 x 128, seed and remat "dots"):
+      3 sharded (DTensor) steps against 3 plain ones, losses within 1e-6
+      and grad_norm within 1e-5 relative, host and device ms of both;
+      ``FlopCounterMode``'s FLOPs of a step against 6·N·D and the
+      model-FLOPs share of 989 TFLOP/s; the dry-run's prediction for the
+      same cell at 1 rank (``launch.dryrun.run_cell``, a subprocess on the
+      fake backend) with FLOPs equal to the card's count and its peak
+      bytes against ``max_memory_allocated``; one MoE layer of
+      qwen3-moe-30b-a3b at full width (fp32, 2 x 512 tokens) through
+      ``moe_ffn(mesh=...)`` bit-identical to no mesh (EP is not taken at
+      model = 1).  No kernel lies on this path.  The group is torn down at
+      the end.
 4. Times: CUDA-event medians of each kernel, its plain version and, for the
    matmul, the library product on a dense weight, beside each kernel's
    bound, at the main paths' shapes (and qwen2-72b's MLP width for the
@@ -267,6 +282,15 @@ TRAIN_DP_STEPS = 3
 TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "adamw": 1e-6}
 # the remat policies whose step is profiled: the config's, and none
 TRAIN_PROFILED = ("none", "dots")
+# phase 3g: the named mesh, a 1-rank NCCL group, (data=1, model=1) on the
+# card: qwen3-0.6b at full width and depth, phase 3f's batch and seed,
+# MESH_STEPS sharded (DTensor) steps against as many plain ones; one MoE
+# layer of qwen3-moe-30b-a3b at full width, fp32, MESH_MOE_TOKENS tokens.
+# Tolerances: loss and grad_norm relative, per step
+MESH_STEPS = 3
+MESH_TOL = {"loss": 1e-6, "grad_norm": 1e-5}
+MESH_MOE_ARCH = "qwen3-moe-30b-a3b"
+MESH_MOE_TOKENS = (2, 512)
 # ternary-matmul timings: (model, K, N, M), K x N the model's w1
 MATMUL_TIMES = tuple(("qwen3-0.6b", *QWEN3_06B, m)
                     for m in (1, 4, 8, 16, 2048)) + \
@@ -2426,6 +2450,220 @@ def train_compressed_dp(base, dev, card: str, log) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3g: the named mesh
+# ---------------------------------------------------------------------------
+
+def phase_mesh_path(dev, card: str, log) -> dict:
+    """A 1-rank NCCL group (a FileStore in a temporary directory), the
+    (data=1, model=1) DeviceMesh on the card: qwen3-0.6b sharded against
+    plain steps, the roofline of the real step, the dry-run's prediction
+    against the card, one full-width MoE layer on the mesh against none.
+    The group is torn down at the end, whatever happens."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_",
+                                 dir=os.path.join(ROOT, "build"))
+    dist.init_process_group(
+        "nccl", rank=0, world_size=1, device_id=dev,
+        store=dist.FileStore(os.path.join(store_dir, "store"), 1))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        res = {"mesh": str(mesh), "card": card}
+        res["train"] = mesh_train(mesh, dev, card, log)
+        torch.cuda.empty_cache()
+        res["dryrun"] = mesh_dryrun(res["train"], card, log)
+        res["moe"] = mesh_moe(mesh, dev, card, log)
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def mesh_train(mesh, dev, card: str, log) -> dict:
+    """MESH_STEPS steps of qwen3-0.6b (bf16 compute, remat "dots", batch
+    8 x 128, seed 0) through ``make_train_step(..., mesh=mesh)`` against
+    the same steps without a mesh; then one sharded step under
+    ``FlopCounterMode`` and one whose peak memory is read."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    cfg = get_config(MODEL_ARCH)
+    b, s = TRAIN_SHAPE
+    opt_cfg = opt.AdamWCfg(lr=3e-4, total_steps=MESH_STEPS, warmup_steps=1)
+    state0 = ts.init_train_state(cfg, seed=SEED, device=dev)
+    n_params = sum(p.numel() for p in opt.tree_leaves(state0["params"]))
+    batches = [train_batch(cfg, b, s, i, SEED, dev)
+               for i in range(MESH_STEPS)]
+    routes = {"plain": ts.make_train_step(cfg, opt_cfg),
+              "sharded": ts.make_train_step(cfg, opt_cfg, mesh=mesh)}
+    res = {"n_params": n_params, "batch": b, "seq": s}
+    for name, step in routes.items():
+        st = state0 if name == "plain" else ts.shard_train_state(state0,
+                                                                 mesh)
+        losses, gnorms, host, device = [], [], [], []
+        for batch in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            st, m = step(st, batch)
+            end.record()
+            loss = m["loss"]
+            loss = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                         else loss)
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            device.append(start.elapsed_time(end))
+            g = m["grad_norm"]
+            gnorms.append(float(g.full_tensor() if hasattr(g, "full_tensor")
+                                else g))
+            losses.append(loss)
+        res[name] = {"losses": losses, "grad_norms": gnorms,
+                     "host_ms": host, "device_ms": device}
+        log(f"  {name}: {MESH_STEPS} steps, losses "
+            + " ".join(f"{x:.6f}" for x in losses) + ", grad_norm "
+            + " ".join(f"{x:.6f}" for x in gnorms) + "; host ms "
+            + " ".join(f"{x:.1f}" for x in host) + ", stream ms (CUDA "
+            "events from the step's start to its end, idle included) "
+            + " ".join(f"{x:.1f}" for x in device)
+            + f", card {card}")
+        del st
+    loss_err = max(abs(a - w) / abs(w) for a, w in zip(
+        res["sharded"]["losses"], res["plain"]["losses"]))
+    gn_err = max(abs(a - w) / abs(w) for a, w in zip(
+        res["sharded"]["grad_norms"], res["plain"]["grad_norms"]))
+    res["loss_rel_err"], res["grad_norm_rel_err"] = loss_err, gn_err
+    log(f"  sharded vs plain: loss rel err {loss_err:.3e} (limit "
+        f"{MESH_TOL['loss']}), grad_norm rel err {gn_err:.3e} (limit "
+        f"{MESH_TOL['grad_norm']}); median host ms sharded "
+        f"{statistics.median(res['sharded']['host_ms']):.1f} vs plain "
+        f"{statistics.median(res['plain']['host_ms']):.1f}, card {card}")
+    check(loss_err <= MESH_TOL["loss"], "mesh: sharded loss")
+    check(gn_err <= MESH_TOL["grad_norm"], "mesh: sharded grad_norm")
+
+    # the roofline of the real step: its counted FLOPs against 6·N·D, and
+    # the model-FLOPs share of the bf16 peak at the sharded median
+    step = routes["sharded"]
+    st = ts.shard_train_state(state0, mesh)
+    del state0
+    with FlopCounterMode(display=False) as fc:
+        st2, _ = step(st, batches[0])
+    del st2
+    flops = fc.get_total_flops()
+    model_flops = 6 * n_params * b * s
+    ms = statistics.median(res["sharded"]["host_ms"])
+    res.update(flops=flops, model_flops=model_flops,
+               flops_share=model_flops / (ms / 1e3 * PEAK_BF16_FLOP_PER_S))
+    log(f"  roofline: FlopCounterMode {flops:.6e} FLOPs a step, 6·N·D "
+        f"{model_flops:.6e} (ratio {flops / model_flops:.4f}: attention "
+        f"and the recomputed products of remat dots beyond 6·N·D); "
+        f"model-FLOPs share of {PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s "
+        f"bf16 at the median {ms:.1f} ms: "
+        f"{100 * res['flops_share']:.3f} %, card {card}")
+    import gc
+    gc.collect()                     # DTensor garbage held in cycles
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    st2, _ = step(st, batches[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    res["state_bytes"] = sum(
+        t.to_local().nbytes for t in opt.tree_leaves(st["params"])
+        + opt.tree_leaves(st["opt"]["m"]) + opt.tree_leaves(st["opt"]["v"]))
+    res.update(max_memory_allocated=peak, base_bytes=base,
+               step_peak_bytes=peak - base + res["state_bytes"])
+    del st, st2
+    return res
+
+
+def mesh_dryrun(train: dict, card: str, log) -> dict:
+    """The dry-run's per-card prediction for ShapeCell("phase3g", "train",
+    128, 8) on a 1-rank (1, 1) mesh (fake backend, meta tensors, in a
+    subprocess: a process has one default group): its FLOPs must equal
+    the count on the card's tensors; its peak bytes beside
+    ``max_memory_allocated``."""
+    code = ("import json, sys\n"
+            "from repro_torch.configs import get_config\n"
+            "from repro_torch.configs.shapes import ShapeCell\n"
+            "from repro_torch.launch import dryrun\n"
+            f"cfg = get_config({MODEL_ARCH!r})\n"
+            f"cell = ShapeCell('phase3g', 'train', {TRAIN_SHAPE[1]}, "
+            f"{TRAIN_SHAPE[0]})\n"
+            "rec = dryrun.run_cell(cfg, cell, dryrun.build_mesh((1, 1), "
+            "('data', 'model')))\n"
+            "print(json.dumps(rec))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    check(out.returncode == 0, f"dry-run subprocess: {out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    rec["wall_s"] = time.perf_counter() - t0
+    peak = rec["memory"]["peak_bytes"]
+    log(f"  dry-run prediction (1 rank, meta, {rec['wall_s']:.1f} s): "
+        f"{rec['flops']:.6e} FLOPs, counted on the card "
+        f"{train['flops']:.6e} ({'equal' if rec['flops'] == train['flops'] else 'DIFFER'}); "
+        f"peak {peak / 2**30:.3f} GiB (state "
+        f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB) against the "
+        f"card's step peak {train['step_peak_bytes'] / 2**30:.3f} GiB "
+        f"(ratio {peak / train['step_peak_bytes']:.3f}) and "
+        f"max_memory_allocated {train['max_memory_allocated'] / 2**30:.3f}"
+        f" GiB (ratio {peak / train['max_memory_allocated']:.3f}), card "
+        f"{card}")
+    check(rec["flops"] == train["flops"],
+          "the dry-run's FLOPs differ from the card's count")
+    return rec
+
+
+def mesh_moe(mesh, dev, card: str, log) -> dict:
+    """One MoE layer of qwen3-moe-30b-a3b at full width (d_model 2048, 128
+    experts, top 8, d_ff 768), fp32, on MESH_MOE_TOKENS tokens: ``moe_ffn``
+    on the mesh against no mesh, bit for bit, as "tp" and as "ep" (which
+    falls to the TP body at model = 1, as in the reference)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config(MESH_MOE_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    p = moe_mod.init_moe(gen, cfg.d_model, cfg.moe, torch.float32)
+    x = torch.randn((*MESH_MOE_TOKENS, cfg.d_model), generator=gen,
+                    device=dev)
+    res = {}
+    with torch.no_grad():
+        want = moe_mod.moe_ffn(p, x, cfg.moe, cfg.act)
+        for mode in ("tp", "ep"):
+            mcfg = cfg.moe.__class__(**{**cfg.moe.__dict__,
+                                        "parallelism": mode})
+            ep = moe_mod.use_ep(mcfg, mesh, x.shape[0] * x.shape[1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = moe_mod.moe_ffn(p, x, mcfg, cfg.act, mesh=mesh)
+            got = got.full_tensor()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            same = torch.equal(got, want)
+            res[mode] = {"bit_identical": same, "ep_taken": ep, "ms": ms}
+            log(f"  MoE {MESH_MOE_ARCH} layer, d_model {cfg.d_model}, "
+                f"{cfg.moe.n_experts} experts top {cfg.moe.top_k}, d_ff "
+                f"{cfg.moe.d_ff}, fp32, {MESH_MOE_TOKENS[0]} x "
+                f"{MESH_MOE_TOKENS[1]} tokens, parallelism {mode!r}: "
+                f"{'EP body' if ep else 'TP body (EP is not taken at model = 1, as in the reference)'}"
+                f", {'bit-identical' if same else 'DIFFERS'} to no mesh, "
+                f"{ms:.1f} ms (host clock), card {card}")
+            check(same, f"mesh MoE {mode}: not bit-identical")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -2919,9 +3157,14 @@ def main() -> int:
             "qwen3-0.6b training",
             lambda dev, log: phase_train_path(dev, card, log), ())
         log(f"  phase 3f took {report['train_path']['seconds']:.3f} s")
+        log("[main path: qwen3-0.6b and a MoE layer on a named mesh]")
+        report["mesh_path"] = main_path(
+            "named mesh",
+            lambda dev, log: phase_mesh_path(dev, card, log), ())
+        log(f"  phase 3g took {report['mesh_path']['seconds']:.3f} s")
         launches = {k: sum(report[p]["launches"][k] for p in (
             "main_path", "matmul_path", "pool_path", "model_path",
-            "ap_serve_path", "train_path")) for k in KERNELS}
+            "ap_serve_path", "train_path", "mesh_path")) for k in KERNELS}
 
         log("[times]")
         report["times"] = phase_times(dev, card, log)

@@ -9,7 +9,10 @@ checkpoint in ``--ckpt-dir``, runs the fault-tolerant loop and prints
 ``done: steps=... loss a -> b stragglers=...``.  ``--compressed-dp`` runs
 the TernGrad step over every visible card (``make_elastic_mesh``; with
 ``--device``, that device alone); the loop checkpoints the first
-replica's state.  ``main(argv)`` returns the loop's summary.
+replica's state.  Inside an initialised process group (one process per
+rank, each given its device) the state is sharded over the elastic
+(data, model) mesh by the partition rules and every step runs on it.
+``main(argv)`` returns the loop's summary.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import logging
 import os
 import tempfile
 
+import torch.distributed as dist
+
 from ..configs import get_config, get_smoke_config
 from ..configs.registry import ARCH_IDS
 from ..data import DataCfg, TokenSource
@@ -25,7 +30,8 @@ from ..device import resolve_device
 from ..train.compression import make_compressed_dp_step, replicate
 from ..train.optimizer import AdamWCfg
 from ..train.runtime import RunCfg, train_loop
-from ..train.train_step import init_train_state, make_train_step
+from ..train.train_step import (init_train_state, make_train_step,
+                                shard_train_state)
 from .mesh import make_elastic_mesh
 
 
@@ -62,7 +68,15 @@ def main(argv=None) -> dict:
         DataCfg(vocab=cfg.vocab, global_batch=args.batch, seq_len=args.seq,
                 path=args.data_path))
     state = init_train_state(cfg, seed=0, device=dev)
-    if args.compressed_dp:
+    if dist.is_available() and dist.is_initialized():
+        if args.compressed_dp:
+            raise ValueError("--compressed-dp takes a list of devices, not "
+                             "a process group")
+        mesh = make_elastic_mesh()
+        state = shard_train_state(state, mesh)
+        step = make_train_step(cfg, opt_cfg, microbatches=args.microbatches,
+                               mesh=mesh)
+    elif args.compressed_dp:
         mesh = [dev] if args.device else make_elastic_mesh()
         dp_step = make_compressed_dp_step(cfg, mesh, opt_cfg)
 

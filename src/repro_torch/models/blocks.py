@@ -15,7 +15,7 @@ from . import attention as attn
 from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import rms_norm
+from .common import is_named_mesh, rms_norm, unread_dot
 
 DENSE_ATTN_MAX = 512        # below this, skip blockwise machinery
 
@@ -52,11 +52,20 @@ def _rope_theta(cfg: ModelConfig, mixer_kind: str) -> float:
     return cfg.rope_theta
 
 
+def _one_device(mesh) -> None:
+    """The block functions run one device's math: ``mesh`` is None or a
+    list of devices.  A named mesh runs the whole pass as one per-rank
+    body (:mod:`.sharded`)."""
+    if is_named_mesh(mesh):
+        raise ValueError("a named mesh runs through models.model.forward / "
+                         "decode_step (models.sharded), not block by block")
+
+
 def _mixer_forward(p, x, cfg: ModelConfig, mixer_kind: str, positions,
-                   causal: bool) -> torch.Tensor:
+                   causal: bool, tail: bool = False) -> torch.Tensor:
     if mixer_kind == "mamba":
         return ssm_mod.mamba_forward(p["mamba"], x, cfg.ssm, cfg.d_model,
-                                     cfg.norm_eps)
+                                     cfg.norm_eps, tail=tail)
     window = cfg.sliding_window if mixer_kind == "local" else 0
     q, k, v = attn.project_qkv(
         p["attn"], x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
@@ -67,23 +76,32 @@ def _mixer_forward(p, x, cfg: ModelConfig, mixer_kind: str, positions,
         o = attn.attend_dense(q, k, v, causal=causal, window=window)
     else:
         o = attn.attend_blockwise(q, k, v, causal=causal, window=window)
-    return o.reshape(x.shape[0], s, -1) @ p["attn"]["wo"]
+    with unread_dot(tail):
+        return o.reshape(x.shape[0], s, -1) @ p["attn"]["wo"]
 
 
-def _ffn_forward(p, x, cfg: ModelConfig, ffn_kind: str) -> torch.Tensor:
+def _ffn_forward(p, x, cfg: ModelConfig, ffn_kind: str,
+                 tail: bool = False) -> torch.Tensor:
     if ffn_kind == "moe":
         return moe_mod.moe_ffn(p["moe"], x, cfg.moe, cfg.act)
     return mlp_mod.mlp(p["mlp"], x, cfg.act,
                        ternary=cfg.ternary.enabled or cfg.ternary.qat,
-                       qat=cfg.ternary.qat)
+                       qat=cfg.ternary.qat, tail=tail)
 
 
 def block_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   mixer_kind: str, ffn_kind: str, positions,
                   causal: bool = True,
-                  enc_out: torch.Tensor | None = None) -> torch.Tensor:
+                  enc_out: torch.Tensor | None = None, *, mesh=None,
+                  tail: bool = False) -> torch.Tensor:
+    """Pre-norm mixer (+ cross-attention) + pre-norm FFN on one device
+    (``mesh``: None or a list of devices).  ``tail``: this is the last
+    layer of a super-block, so its last projection feeds only the
+    block's output (remat "dots" recomputes it)."""
+    _one_device(mesh)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + _mixer_forward(p, h, cfg, mixer_kind, positions, causal)
+    x = x + _mixer_forward(p, h, cfg, mixer_kind, positions, causal,
+                           tail=tail and ffn_kind == "none")
     if enc_out is not None and "cross" in p:
         h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
         q, _, _ = attn.project_qkv(
@@ -98,7 +116,7 @@ def block_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if ffn_kind == "none":
         return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + _ffn_forward(p, h, cfg, ffn_kind)
+    return x + _ffn_forward(p, h, cfg, ffn_kind, tail=tail)
 
 
 # ---------------------------------------------------------------------------
@@ -129,9 +147,11 @@ def init_block_cache(cfg: ModelConfig, mixer_kind: str, batch: int,
 
 
 def block_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
-                 mixer_kind: str, ffn_kind: str, pos: int) -> torch.Tensor:
+                 mixer_kind: str, ffn_kind: str, pos: int, *,
+                 mesh=None) -> torch.Tensor:
     """One-token step.  x [B, 1, d]; ``pos`` an int.  Writes this token's
     state into ``cache`` in place."""
+    _one_device(mesh)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if mixer_kind == "mamba":
         o, new = ssm_mod.mamba_decode_step(

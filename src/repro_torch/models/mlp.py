@@ -19,7 +19,7 @@ import torch
 
 from ..kernels.ternary_matmul.ops import ternary_matmul_op
 from ..kernels.ternary_matmul.ref import quantize_ternary
-from .common import act_fn, dense_init
+from .common import act_fn, dense_init, unread_dot
 from .quant import unpack_matmul
 
 _PLAIN_PACKED = contextvars.ContextVar("plain_packed_mlp", default=False)
@@ -105,7 +105,9 @@ def mlp_ap(p: dict, x: torch.Tensor, act: str, ctx) -> torch.Tensor:
 
 
 def mlp(p: dict, x: torch.Tensor, act: str = "silu", ternary: bool = False,
-        qat: bool = False) -> torch.Tensor:
+        qat: bool = False, tail: bool = False) -> torch.Tensor:
+    """SwiGLU; ``tail``: the down projection feeds only a super-block's
+    output (:func:`~repro_torch.models.common.unread_dot`)."""
     if "w1_packed" in p:                     # packed ternary serving weights
         from ..apc.layers import current_ap_context
         ctx = current_ap_context()
@@ -116,4 +118,5 @@ def mlp(p: dict, x: torch.Tensor, act: str = "silu", ternary: bool = False,
         return packed_matmul(h, p["w2_packed"], p["w2_scale"])
     h = act_fn(act)(linear(x, p["w1"], ternary, qat)) \
         * linear(x, p["w3"], ternary, qat)
-    return linear(h, p["w2"], ternary, qat)
+    with unread_dot(tail):
+        return linear(h, p["w2"], ternary, qat)

@@ -9,6 +9,13 @@ each super-block (one repetition of the layer pattern) under the
 activation-checkpoint policy ``cfg.remat`` (:func:`remat_wrap`) while
 autograd records.
 
+``mesh=`` (keyword) takes ``None``, a list of devices (both: one device's
+math, as before), or a named :class:`~torch.distributed.device_mesh.
+DeviceMesh`: then the params and the batch are DTensors
+(:func:`~repro_torch.models.common.shard_tree`) and the whole pass runs as
+one per-rank body (:mod:`.sharded`); :func:`_constrain` places the
+logits where the reference constrains them.
+
 The reference casts every block's float leaves and the embedding table to
 the compute dtype inside each call, where XLA fuses the casts.  Eagerly on
 the card that would re-read every fp32 weight at every step, so the port
@@ -23,13 +30,16 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.utils.checkpoint import (checkpoint,
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..configs.shapes import ShapeCell
 from ..device import resolve_device
 from . import blocks as blk
-from .common import dtype_of, embed_init, dense_init, rms_norm
+from . import sharded
+from .common import (MetaGen, dot_unread, dtype_of, embed_init, dense_init,
+                     is_named_mesh, mesh_data_axes, placements, rms_norm)
 
 Params = dict
 
@@ -49,25 +59,35 @@ def _layer_plan(cfg: ModelConfig) -> tuple[int, list[tuple[str, str]], int]:
 
 # "dots": the products without batch dimensions (the projections, x @ w on
 # [B, S, d] folds to one mm) are saved, the rest is recomputed
-_DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """Save a product without batch dimensions unless the backward pass
+    never reads it (:func:`~repro_torch.models.common.unread_dot`: the
+    product that feeds only the super-block's output), recompute the
+    rest: the residuals ``checkpoint_dots_with_no_batch_dims`` keeps."""
+    if func in _DOTS and not dot_unread():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def remat_wrap(fn, cfg: ModelConfig):
     """``fn`` (a super-block body, ``x`` first) under ``cfg.remat``:
     ``"none"`` the function itself; ``"full"`` saves nothing and recomputes
     the body in the backward pass; ``"dots"`` saves the ``aten.mm`` /
-    ``aten.addmm`` products and recomputes the batched products and the
-    elementwise ops, as ``checkpoint_dots_with_no_batch_dims`` does.  The
-    three give the same grads.  Where autograd does not record (``x``
-    needs no grad, or under ``inference_mode``) every policy runs ``fn``
-    as is."""
+    ``aten.addmm`` products that the backward reads (:func:`dots_policy`)
+    and recomputes the batched products and the elementwise ops, as
+    ``checkpoint_dots_with_no_batch_dims`` does.  The three give the same
+    grads.  Where autograd does not record (``x`` needs no grad, or under
+    ``inference_mode``) every policy runs ``fn`` as is."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":
         kw = {}
     elif cfg.remat == "dots":
         kw = {"context_fn": functools.partial(
-            create_selective_checkpoint_contexts, _DOTS_SAVED)}
+            create_selective_checkpoint_contexts, dots_policy)}
     else:
         raise ValueError(f"remat={cfg.remat!r}: not none, dots or full")
 
@@ -107,10 +127,14 @@ def _unstack(tree: dict, n: int) -> list[dict]:
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random weights from ``seed`` in the reference's tree, in
-    ``cfg.param_dtype`` on ``device`` (``None`` = ``cuda:0``)."""
+    ``cfg.param_dtype`` on ``device`` (``None`` = ``cuda:0``; ``"meta"``
+    builds the tree from shapes alone)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    if dev.type == "meta":                  # shapes only (the dry-run)
+        gen = MetaGen()
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     dtype = dtype_of(cfg.param_dtype)
     n_sb, pattern, n_rest = _layer_plan(cfg)
     cross = cfg.enc_layers > 0
@@ -180,6 +204,20 @@ def _check_cast(cfg: ModelConfig, params: Params) -> None:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _constrain(x: torch.Tensor, mesh, *rest) -> torch.Tensor:
+    """x redistributed to P(data_axes, *rest) on a named mesh; the identity
+    for ``None``, a list of devices, or a plain tensor.  data_axes adapts to
+    the mesh: ("pod","data") multi-pod, ("data",) single-pod; an axis that
+    does not divide its dim is dropped."""
+    if not is_named_mesh(mesh):
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    want = placements((mesh_data_axes(mesh), *rest), mesh, x.shape)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                  embeds: torch.Tensor | None) -> torch.Tensor:
     cdt = dtype_of(cfg.compute_dtype)
@@ -198,11 +236,13 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, positions,
     n_sb, pattern, n_rest = _layer_plan(cfg)
     if prefix == "enc_":
         n_sb, pattern, n_rest = cfg.enc_layers, [("attn", "mlp")], 0
+    last = len(pattern) - 1
 
     def sb_body(x, sb_params):
         for i, (mk, fk) in enumerate(pattern):
             x = blk.block_forward(sb_params[i], x, cfg, mk, fk, positions,
-                                  causal=causal, enc_out=enc_out)
+                                  causal=causal, enc_out=enc_out,
+                                  tail=i == last)
         return x
 
     body = remat_wrap(sb_body, cfg)
@@ -225,11 +265,17 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor):
     return x @ params["lm_head"]["w"]
 
 
-def forward(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
+def forward(cfg: ModelConfig, params: Params, batch: dict, *,
+            mesh=None) -> torch.Tensor:
     """batch: tokens [B, S_tok], optional embeds [B, n_front, d], optional
     enc_tokens/enc_embeds for enc-dec.  ``params`` from
-    :func:`cast_params`.  Returns logits [B, S, V] in the compute dtype."""
+    :func:`cast_params`.  Returns logits [B, S, V] in the compute dtype; on
+    a named mesh a DTensor, batch over the data axes and vocab over
+    "model" (:func:`.sharded.forward`)."""
     _check_cast(cfg, params)
+    if is_named_mesh(mesh):
+        logits = sharded.forward(cfg, params, batch, mesh)
+        return _constrain(logits, mesh, None, "model")
     cdt = dtype_of(cfg.compute_dtype)
     x = embed_tokens(cfg, params, batch["tokens"], batch.get("embeds"))
     b, s, _ = x.shape
@@ -279,13 +325,17 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: dict,
-                tokens: torch.Tensor, pos: int
+                tokens: torch.Tensor, pos: int, *, mesh=None
                 ) -> tuple[torch.Tensor, dict]:
     """One decode step: tokens [B] int, ``pos`` an int -> (logits [B, V],
     cache).  ``params`` from :func:`cast_params`; ``cache`` (from
-    :func:`init_cache`) is updated in place and returned."""
+    :func:`init_cache`; on a named mesh DTensors placed by
+    :func:`.sharded.cache_specs`) is updated in place and returned."""
     _check_cast(cfg, params)
     pos = int(pos)
+    if is_named_mesh(mesh):
+        logits = sharded.decode_step(cfg, params, cache, tokens, pos, mesh)
+        return _constrain(logits, mesh, "model"), cache
     n_sb, pattern, n_rest = _layer_plan(cfg)
     x = embed_tokens(cfg, params, tokens, None)[:, None, :]
     if n_sb > 0:
@@ -302,3 +352,35 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
                              cfg, mk, fk, pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, x[:, 0]), cache
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta stand-ins for the dry-run)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell,
+                cache_dtype=torch.bfloat16) -> dict:
+    """``meta`` tensors for every model input of the given shape cell, in
+    the reference's shapes and dtypes (``pos`` a 0-d int32)."""
+    b, s = cell.global_batch, cell.seq_len
+    i32 = torch.int32
+    cdt = dtype_of(cfg.compute_dtype)
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cell.kind in ("train", "prefill"):
+        n_front = cfg.n_frontend_tokens if cfg.frontend else 0
+        spec = {"tokens": meta((b, s - n_front), i32)}
+        if cfg.frontend:
+            spec["embeds"] = meta((b, n_front, cfg.d_model), cdt)
+        if cfg.enc_layers:
+            spec["enc_embeds"] = meta((b, min(s, 4096), cfg.d_model), cdt)
+        if cell.kind == "train":
+            spec["targets"] = meta((b, s - n_front), i32)
+        return spec
+    # decode: one token against a seq_len cache
+    cross_len = min(s, 4096) if cfg.enc_layers else 0
+    return {"tokens": meta((b,), i32), "pos": meta((), i32),
+            "cache": init_cache(cfg, b, s, cross_len, cache_dtype,
+                                device="meta")}

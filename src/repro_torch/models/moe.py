@@ -1,21 +1,44 @@
-"""Mixture-of-Experts with sort-based capacity dispatch, on one device.
+"""Mixture-of-Experts with sort-based capacity dispatch.
 
 router -> top-k -> flat (token, expert) pairs sorted by expert ->
 position-in-expert via rank-within-segment -> capacity-dropped scatter into
 an [E, C, d] buffer -> block-diagonal expert einsum -> weighted combine.
 
-:func:`moe_ffn` is the single-device body of the reference's
-``_local_moe_tp`` without its collectives.  On one chip the reference's
-``"ep"`` mode falls to that body too (it needs more than one model shard).
-Inside :func:`repro_torch.apc.layers.ap_serving` the experts run on the AP
+Two parallelism modes on a named mesh (MoECfg.parallelism), the
+reference's bodies under ``local_map`` (its ``shard_map``), collectives over
+``mesh.get_group(axis)``:
+
+  "tp": expert weights FSDP-sharded on d_model over "data" (gathered) and
+      TP-sharded on d_ff over "model" (the down-projection summed over
+      "model"); dispatch is local to each data shard.
+  "ep": experts sharded over "model"; each model shard dispatches its 1/tp
+      slice of the tokens, two all_to_alls carry them to their expert's
+      owner and back, an all_gather restores the model-replicated output.
+      Taken only when ``n_experts % tp == 0``, ``tp > 1`` and the tokens
+      divide by tp, as in the reference; else "tp".
+
+Without a named mesh (``None`` or a list of devices) :func:`moe_ffn` runs
+the TP body on one device, without collectives.  Inside
+:func:`repro_torch.apc.layers.ap_serving` the experts run on the AP
 instead (:func:`moe_ffn_ap`).
+
+The collectives (:mod:`.collectives`) backpropagate as the reference's
+transposes: the router's grads are summed over the data axes, the
+experts' x's over "model", a weight gathered over "data" takes its grads
+reduce-scattered.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
 from ..configs.base import MoECfg
-from .common import act_fn, dense_init
+from .collectives import (GatherOutput, GatherWeight, Psum, all_to_all,
+                          my_slice, sum_grad_over)
+from .common import (MODEL_AXIS, act_fn, dense_init, is_named_mesh,
+                     mesh_data_axes, mesh_sizes, placements)
 
 
 def init_moe(gen: torch.Generator, d_model: int, cfg: MoECfg,
@@ -53,7 +76,9 @@ def _dispatch_indices(experts: torch.Tensor, n_experts: int,
     flat = experts.reshape(-1).long()                   # [T*k]
     perm = torch.argsort(flat, stable=True)             # sorted by expert
     sorted_e = flat[perm]
-    counts = torch.bincount(flat, minlength=n_experts)  # [E]
+    counts = torch.zeros(n_experts, dtype=flat.dtype,   # [E] (a bincount
+                         device=flat.device).index_add_(  # that runs on
+        0, flat, torch.ones_like(flat))                     # meta too)
     seg_start = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=flat.device) - seg_start[sorted_e]
     keep = pos < capacity
@@ -70,6 +95,121 @@ def _expert_ffn(buf: torch.Tensor, w1, w3, w2, act: str) -> torch.Tensor:
     u = torch.bmm(buf, w3)
     h = act_fn(act)(h) * u
     return torch.bmm(h, w2)
+
+
+# ---------------------------------------------------------------------------
+# The bodies
+# ---------------------------------------------------------------------------
+
+def _capacity(t: int, cfg: MoECfg) -> int:
+    return max(8, int(t * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
+
+
+def _moe_tp_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str,
+                 mesh=None, tp_split: bool = False):
+    """Dispatch on this data shard's tokens; w1/w3 [E, d, ff_l], w2
+    [E, ff_l, d] whole on d; ``tp_split``: ff split over "model" (the
+    experts' x takes its grads summed over "model", their output is
+    summed over it)."""
+    x_exp = sum_grad_over(x, mesh, (MODEL_AXIS,)) if tp_split else x
+    b, s, d = x.shape
+    t = b * s
+    x2d = x.reshape(t, d)
+    gates, experts = _route(x2d, router, cfg)
+    e = cfg.n_experts
+    capacity = _capacity(t, cfg)
+    slot = _dispatch_indices(experts, e, capacity).long()
+    # scatter tokens (duplicated per k) into the capacity buffer; every
+    # dropped pair lands on the extra last row, which is discarded
+    buf = x.new_zeros((e * capacity + 1, d))
+    buf[slot] = torch.repeat_interleave(x_exp.reshape(t, d), cfg.top_k,
+                                        dim=0)
+    out_buf = _expert_ffn(buf[:-1].reshape(e, capacity, d), w1, w3, w2, act)
+    if tp_split:
+        out_buf = Psum.apply(out_buf, mesh.get_group(MODEL_AXIS))
+    out_flat = torch.cat([out_buf.reshape(e * capacity, d),
+                          out_buf.new_zeros((1, d))], 0)
+    yk = out_flat[slot]                          # [T*k, d], 0 if dropped
+    yk = yk * gates.reshape(-1, 1).to(yk.dtype)
+    return yk.reshape(t, cfg.top_k, d).sum(dim=1).reshape(b, s, d)
+
+
+def _local_moe_tp(x, router, w1, w3, w2, *, cfg: MoECfg, act: str,
+                  mesh=None, da=None):
+    """Per-data-shard body.  x [b_l, s, d] replicated over model; w1/w3
+    [E, d/dp, ff/tp], w2 [E, ff/tp, d/dp] (FSDP gathered over "data", the
+    down-projection summed over "model").  Without ``mesh``: the whole
+    layer on one device, no collective."""
+    tp_split = False
+    if mesh is not None:
+        sizes = mesh_sizes(mesh)
+        router = sum_grad_over(router, mesh, da or ())
+        pods = tuple(a for a in da or () if a != "data")
+        w1, w3, w2 = (sum_grad_over(w, mesh, pods) for w in (w1, w3, w2))
+        if sizes.get("data", 1) > 1:                     # FSDP gather
+            g, red = mesh.get_group("data"), "data" in (da or ())
+            w1 = GatherWeight.apply(w1, g, 1, red)
+            w3 = GatherWeight.apply(w3, g, 1, red)
+            w2 = GatherWeight.apply(w2, g, 2, red)
+        tp_split = sizes[MODEL_AXIS] > 1
+    return _moe_tp_core(x, router, w1, w3, w2, cfg=cfg, act=act, mesh=mesh,
+                        tp_split=tp_split)
+
+
+def _moe_ep_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str, mesh):
+    """Expert-parallel dispatch; w1/w3 [E/tp, d, ff], w2 [E/tp, ff, d]
+    (this rank's experts, whole).
+
+    x enters replicated over "model" (it is sharded over the data axes
+    only), so the tokens are first SPLIT across the model axis — each model
+    shard dispatches its own 1/tp slice.  Then: local sort-based dispatch,
+    all_to_all over "model", whole-expert FFN, all_to_all back, combine,
+    and a final all_gather restores model-replication of the output."""
+    group = mesh.get_group(MODEL_AXIS)
+    tp_size = mesh_sizes(mesh)[MODEL_AXIS]
+    x = sum_grad_over(x, mesh, (MODEL_AXIS,))
+    b, s, d = x.shape
+    t = b * s // tp_size                         # tokens per model shard
+    x2d = my_slice(x.reshape(b * s, d), group, 0)
+    gates, experts = _route(x2d, router, cfg)
+    e = cfg.n_experts
+    e_local = e // tp_size
+    # capacity per (destination shard, local expert) buffer
+    capacity = _capacity(t, cfg)
+    slot = _dispatch_indices(experts, e, capacity).long()  # global experts
+    buf = x.new_zeros((e * capacity + 1, d))
+    buf[slot] = torch.repeat_interleave(x2d, cfg.top_k, dim=0)
+    send = buf[:-1].reshape(tp_size, e_local * capacity, d)
+    recv = all_to_all(send, group)               # [tp, E_l*C, d]
+    recv = recv.reshape(tp_size, e_local, capacity, d) \
+        .transpose(0, 1).reshape(e_local, tp_size * capacity, d)
+    out = _expert_ffn(recv, w1, w3, w2, act)     # whole local experts
+    out = out.reshape(e_local, tp_size, capacity, d) \
+        .transpose(0, 1).reshape(tp_size, e_local * capacity, d)
+    back = all_to_all(out, group)
+    out_flat = torch.cat([back.reshape(e * capacity, d),
+                          back.new_zeros((1, d))], 0)
+    yk = out_flat[slot] * gates.reshape(-1, 1).to(x.dtype)
+    y2d = yk.reshape(t, cfg.top_k, d).sum(dim=1)  # [t, d] (my slice)
+    return GatherOutput.apply(y2d, group, 0).reshape(b, s, d)
+
+
+def _local_moe_ep(x, router, w1, w3, w2, *, cfg: MoECfg, act: str, mesh,
+                  da=None):
+    """Expert-parallel body: experts sharded over "model" (E_l = E/tp),
+    replicated over the data axes (their grads summed over them); the
+    router routes each model rank's own tokens (its grads summed over
+    "model" too)."""
+    router = sum_grad_over(router, mesh, (*(da or ()), MODEL_AXIS))
+    w1, w3, w2 = (sum_grad_over(w, mesh, da or ()) for w in (w1, w3, w2))
+    return _moe_ep_core(x, router, w1, w3, w2, cfg=cfg, act=act, mesh=mesh)
+
+
+def use_ep(cfg: MoECfg, mesh, tokens: int) -> bool:
+    """The reference's condition for the "ep" body."""
+    tp_size = mesh_sizes(mesh)[MODEL_AXIS]
+    return (cfg.parallelism == "ep" and cfg.n_experts % tp_size == 0
+            and tp_size > 1 and tokens % tp_size == 0)
 
 
 def moe_ffn_ap(p: dict, x: torch.Tensor, cfg: MoECfg, act: str,
@@ -93,30 +233,46 @@ def moe_ffn_ap(p: dict, x: torch.Tensor, cfg: MoECfg, act: str,
     return y2d.reshape(b, s, d).to(x.dtype)
 
 
-def moe_ffn(p: dict, x: torch.Tensor, cfg: MoECfg, act: str
-            ) -> torch.Tensor:
+def moe_ffn(p: dict, x: torch.Tensor, cfg: MoECfg, act: str, *,
+            mesh=None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]: route, dispatch at capacity
-    ``max(8, int(T*k*cf/E))``, run the experts, combine (on the AP inside
-    ``ap_serving``)."""
+    ``max(8, int(T*k*cf/E))`` (T: the tokens of one data shard under
+    "tp", of one (data x model) slice under "ep"), run the experts,
+    combine; on the AP inside ``ap_serving``."""
     from ..apc.layers import current_ap_context
     ctx = current_ap_context()
     if ctx is not None:                      # AP-backed serving path
         return moe_ffn_ap(p, x, cfg, act, ctx)
-    b, s, d = x.shape
-    t = b * s
-    x2d = x.reshape(t, d)
-    gates, experts = _route(x2d, p["router"], cfg)
-    e = cfg.n_experts
-    capacity = max(8, int(t * cfg.top_k * cfg.capacity_factor / e))
-    slot = _dispatch_indices(experts, e, capacity).long()
-    # scatter tokens (duplicated per k) into the capacity buffer; every
-    # dropped pair lands on the extra last row, which is discarded
-    buf = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot] = torch.repeat_interleave(x2d, cfg.top_k, dim=0)
-    out_buf = _expert_ffn(buf[:-1].reshape(e, capacity, d),
-                          p["w1"], p["w3"], p["w2"], act)
-    out_flat = torch.cat([out_buf.reshape(e * capacity, d),
-                          out_buf.new_zeros((1, d))], 0)
-    yk = out_flat[slot]                          # [T*k, d], 0 if dropped
-    yk = yk * gates.reshape(-1, 1).to(yk.dtype)
-    return yk.reshape(t, cfg.top_k, d).sum(dim=1).reshape(b, s, d)
+    args = (x, p["router"], p["w1"], p["w3"], p["w2"])
+    if not is_named_mesh(mesh):
+        return _local_moe_tp(*args, cfg=cfg, act=act)
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    # a plain tensor is the same on every rank: place it replicated
+    args = tuple(a if isinstance(a, DTensor) else distribute_tensor(
+        a, mesh, placements((), mesh), src_data_rank=None) for a in args)
+    sizes = mesh_sizes(mesh)
+    da = mesh_data_axes(mesh)
+    if x.shape[0] % math.prod(sizes[a] for a in da) != 0:
+        da = None      # decode batch=1 etc.: replicate over the data axes
+    if use_ep(cfg, mesh, x.shape[0] * x.shape[1]):
+        body = functools.partial(_local_moe_ep, cfg=cfg, act=act, mesh=mesh,
+                                 da=da)
+        specs = ((da, None, None),                  # x
+                 (None, None),                      # router (replicated)
+                 (MODEL_AXIS, None, None),          # w1 [E/tp, d, ff]
+                 (MODEL_AXIS, None, None),          # w3
+                 (MODEL_AXIS, None, None))          # w2 [E/tp, ff, d]
+    else:
+        body = functools.partial(_local_moe_tp, cfg=cfg, act=act, mesh=mesh,
+                                 da=da)
+        specs = ((da, None, None),
+                 (None, None),
+                 (None, "data", MODEL_AXIS),
+                 (None, "data", MODEL_AXIS),
+                 (None, MODEL_AXIS, "data"))
+    fn = local_map(body,
+                   out_placements=list(placements((da, None, None), mesh)),
+                   in_placements=tuple(placements(sp, mesh) for sp in specs),
+                   redistribute_inputs=True, device_mesh=mesh)
+    return fn(*args)

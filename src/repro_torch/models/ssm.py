@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import SSMCfg
-from .common import dense_init, rms_norm
+from .common import dense_init, rms_norm, unread_dot
 
 _F32 = torch.float32
 
@@ -99,8 +99,10 @@ def _ssd_chunked(x, dt, a_log, b_mat, c_mat, cfg: SSMCfg):
 
 
 def mamba_forward(p: dict, x: torch.Tensor, cfg: SSMCfg, d_model: int,
-                  norm_eps: float) -> torch.Tensor:
-    """Prefill path.  x [B, S, d] -> [B, S, d]."""
+                  norm_eps: float, tail: bool = False) -> torch.Tensor:
+    """Prefill path.  x [B, S, d] -> [B, S, d].  ``tail``: the output
+    projection feeds only a super-block's output
+    (:func:`~repro_torch.models.common.unread_dot`)."""
     d_in = cfg.expand * d_model
     g, n = cfg.n_groups, cfg.d_state
     n_heads = d_in // cfg.head_dim
@@ -117,7 +119,8 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: SSMCfg, d_model: int,
     y = y + p["d_skip"].to(_F32)[None, None, :, None] * xh.to(_F32)
     y = y.reshape(*lead, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], norm_eps)
-    return y @ p["out_proj"]
+    with unread_dot(tail):
+        return y @ p["out_proj"]
 
 
 # ---------------------------------------------------------------------------

@@ -83,10 +83,14 @@ def _from_numpy(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 def save(ckpt_dir: str, step: int, state, emergency: bool = False,
          keep_last: int = 3) -> str:
     """Write a checkpoint of ``state`` (a nested dict of tensors); returns
-    the committed path."""
-    flat = _flatten(state)
+    the committed path.  DTensor leaves are gathered whole first (every
+    rank of their mesh must call this), and only rank 0 writes."""
+    flat = {k: t.full_tensor() if hasattr(t, "full_tensor") else t
+            for k, t in _flatten(state).items()}
     tmp = os.path.join(ckpt_dir, f"step_{step:09d}.tmp")
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    if _rank() != 0:
+        return final
     pdir = os.path.join(tmp, "proc00000")
     os.makedirs(pdir, exist_ok=True)
 
@@ -102,6 +106,12 @@ def save(ckpt_dir: str, step: int, state, emergency: bool = False,
     if not emergency:
         _gc(ckpt_dir, keep_last)
     return final
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
 
 
 def _gc(ckpt_dir: str, keep_last: int) -> None:
