@@ -117,11 +117,16 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
       (data=1, model=1) ``DeviceMesh`` on the card.  qwen3-0.6b at full
       width and depth (phase 3f's batch 8 x 128, seed and remat "dots"):
       3 sharded (DTensor) steps against 3 plain ones, losses within 1e-6
-      and grad_norm within 1e-5 relative, host and device ms of both;
+      and grad_norm within 1e-5 relative, host ms of both and the device
+      time of one step of each under ``torch.profiler``;
       ``FlopCounterMode``'s FLOPs of a step against 6·N·D and the
       model-FLOPs share of 989 TFLOP/s; the dry-run's prediction for the
       same cell at 1 rank (``launch.dryrun.run_cell``, a subprocess on the
-      fake backend) with FLOPs equal to the card's count and its peak
+      fake backend): its FLOPs equal to the count on the card's tensors
+      (a consistency check: both sides apply ``torch.utils.flop_counter``'s
+      formulas to the same program, so it shows that the meta-tensor run
+      is that program; the per-rank counts rest on the hand count and the
+      multi-rank cases of ``tests/test_torch_partition.py``), and its peak
       bytes against ``max_memory_allocated``; one MoE layer of
       qwen3-moe-30b-a3b at full width (fp32, 2 x 512 tokens) through
       ``moe_ffn(mesh=...)`` bit-identical to no mesh (EP is not taken at
@@ -2525,7 +2530,10 @@ def mesh_train(mesh, dev, card: str, log) -> dict:
                                 else g))
             losses.append(loss)
         res[name] = {"losses": losses, "grad_norms": gnorms,
-                     "host_ms": host, "device_ms": device}
+                     "host_ms": host, "stream_ms": device,
+                     "profile": profile_step(
+                         lambda: step(st, batches[0]),
+                         f"mesh: {name} train step", card, log)}
         log(f"  {name}: {MESH_STEPS} steps, losses "
             + " ".join(f"{x:.6f}" for x in losses) + ", grad_norm "
             + " ".join(f"{x:.6f}" for x in gnorms) + "; host ms "
@@ -2543,7 +2551,10 @@ def mesh_train(mesh, dev, card: str, log) -> dict:
         f"{MESH_TOL['loss']}), grad_norm rel err {gn_err:.3e} (limit "
         f"{MESH_TOL['grad_norm']}); median host ms sharded "
         f"{statistics.median(res['sharded']['host_ms']):.1f} vs plain "
-        f"{statistics.median(res['plain']['host_ms']):.1f}, card {card}")
+        f"{statistics.median(res['plain']['host_ms']):.1f}; device ms "
+        f"(torch.profiler, one step) sharded "
+        f"{res['sharded']['profile']['device_ms']:.3f} vs plain "
+        f"{res['plain']['profile']['device_ms']:.3f}, card {card}")
     check(loss_err <= MESH_TOL["loss"], "mesh: sharded loss")
     check(gn_err <= MESH_TOL["grad_norm"], "mesh: sharded grad_norm")
 
@@ -2587,8 +2598,10 @@ def mesh_dryrun(train: dict, card: str, log) -> dict:
     """The dry-run's per-card prediction for ShapeCell("phase3g", "train",
     128, 8) on a 1-rank (1, 1) mesh (fake backend, meta tensors, in a
     subprocess: a process has one default group): its FLOPs must equal
-    the count on the card's tensors; its peak bytes beside
-    ``max_memory_allocated``."""
+    the count on the card's tensors, a consistency check (the same
+    formulas on the same program: it shows that the meta run is the
+    card's program, not that the formulas are right); its peak bytes
+    beside ``max_memory_allocated``."""
     code = ("import json, sys\n"
             "from repro_torch.configs import get_config\n"
             "from repro_torch.configs.shapes import ShapeCell\n"
@@ -2610,7 +2623,8 @@ def mesh_dryrun(train: dict, card: str, log) -> dict:
     peak = rec["memory"]["peak_bytes"]
     log(f"  dry-run prediction (1 rank, meta, {rec['wall_s']:.1f} s): "
         f"{rec['flops']:.6e} FLOPs, counted on the card "
-        f"{train['flops']:.6e} ({'equal' if rec['flops'] == train['flops'] else 'DIFFER'}); "
+        f"{train['flops']:.6e} ({'equal' if rec['flops'] == train['flops'] else 'DIFFER'}"
+        f": a consistency check, the same formulas on the same program); "
         f"peak {peak / 2**30:.3f} GiB (state "
         f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB) against the "
         f"card's step peak {train['step_peak_bytes'] / 2**30:.3f} GiB "

@@ -10,13 +10,20 @@ result is replicated (grads pass through), :class:`GatherWeight` the FSDP
 all_gather (grads reduce-scattered), :class:`GatherOutput` the gather of a
 replicated result (grads sliced).  :func:`all_to_all` goes through
 ``torch.distributed.nn.functional``.
+
+:class:`Plan` is one pass's view of the mesh, the one object the model's
+per-rank body asks where it would gather, sum or split; without a named
+mesh (:data:`LOCAL`) every one of its collectives is the identity, so the
+same body is the model's single-device pass.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
 
-from .common import mesh_sizes
+from .common import MODEL_AXIS, is_named_mesh, mesh_data_axes, mesh_sizes
 
 
 def all_reduce(t: torch.Tensor, group,
@@ -104,15 +111,114 @@ class GatherOutput(GatherWeight):
         return GatherWeight.backward(ctx, g)[:3]
 
 
-def sum_grad_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    for a in axes:
-        if mesh_sizes(mesh)[a] > 1:
-            t = SumGrad.apply(t, mesh.get_group(a))
-    return t
-
-
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """[tp, ...] -> [tp, ...]: block i goes to rank i (non-tiled)."""
     import torch.distributed.nn.functional as dnn
     t = t.contiguous()
     return dnn.all_to_all_single(torch.empty_like(t), t, group=group)
+
+
+# ---------------------------------------------------------------------------
+# One pass's view of the mesh
+# ---------------------------------------------------------------------------
+
+class _Whole:
+    """The specs of a tree held whole on one device: every entry is
+    itself, and as a spec it names no axis."""
+
+    def __getitem__(self, key):
+        return self
+
+    def __iter__(self):
+        return iter(())
+
+    def __len__(self):
+        return 0
+
+
+WHOLE = _Whole()
+
+
+def axis_names(ax) -> tuple:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    return ax if isinstance(ax, tuple) else (ax,) if ax else ()
+
+
+def on_model(spec) -> bool:
+    return any(MODEL_AXIS in axis_names(ax) for ax in spec)
+
+
+def batch_axes(mesh, batch: int):
+    """The data axes when their product divides ``batch``, else None."""
+    da = mesh_data_axes(mesh)
+    sizes = mesh_sizes(mesh)
+    return da if batch % math.prod(sizes[a] for a in da) == 0 else None
+
+
+class Plan:
+    """One pass on ``mesh`` (a named ``DeviceMesh``; anything else runs on
+    one device): the data axes the batch of ``batch`` rows is split over
+    (``da``, None where they do not divide it), whether attention splits
+    the batch over "model" (``batch_split``, from ``attn_batch_split``),
+    and the gathers and grad sums a local weight needs before its use.
+    Without a mesh every method is the identity."""
+
+    def __init__(self, mesh=None, batch: int = 0,
+                 attn_batch_split: bool = False):
+        self.mesh = mesh if is_named_mesh(mesh) else None
+        self.sizes = mesh_sizes(self.mesh)
+        self.tp = self.sizes.get(MODEL_AXIS, 1)
+        self.da = batch_axes(self.mesh, batch) if self.mesh else None
+        dp = math.prod(self.sizes[a] for a in self.da or ())
+        self.batch_split = (attn_batch_split and self.tp > 1
+                            and batch % (dp * self.tp) == 0)
+
+    def group(self, axis: str):
+        return self.mesh.get_group(axis)
+
+    def rank(self, axis: str) -> int:
+        return dist.get_rank(self.group(axis)) if self.mesh else 0
+
+    def split(self, spec) -> bool:
+        """A leaf placed by ``spec`` is split over a "model" of size > 1."""
+        return self.tp > 1 and on_model(spec)
+
+    def sum_grad(self, t, axes):
+        for a in axes:
+            if self.sizes.get(a, 1) > 1:
+                t = SumGrad.apply(t, self.group(a))
+        return t
+
+    def full(self, w, spec, gather_model: bool = False,
+             model_reduce: bool = False, model_varying: bool = False):
+        """``w`` (this rank's shard, placed by ``spec``) ready for use on
+        this rank's tokens: gathered over "data" (and over "model" with
+        ``gather_model``: grads reduce-scattered when ``model_reduce``,
+        the use varying over "model", else sliced); grads summed over
+        every data axis of the batch it is replicated over, and over
+        "model" with ``model_varying``."""
+        if self.mesh is None:
+            return w
+        held = {n for ax in spec for n in axis_names(ax)}
+        w = self.sum_grad(w, [a for a in self.da or () if a not in held])
+        for d, ax in enumerate(spec):
+            if "data" in axis_names(ax) and self.sizes.get("data", 1) > 1:
+                w = GatherWeight.apply(w, self.group("data"), d,
+                                       "data" in (self.da or ()))
+            if MODEL_AXIS in axis_names(ax) and gather_model and self.tp > 1:
+                w = GatherWeight.apply(w, self.group(MODEL_AXIS), d,
+                                       model_reduce)
+        if model_varying and MODEL_AXIS not in held:
+            w = self.sum_grad(w, (MODEL_AXIS,))
+        return w
+
+    def mine(self, t, dim: int):
+        """This "model" rank's slice of ``t`` along ``dim``."""
+        return my_slice(t, self.group(MODEL_AXIS), dim) if self.tp > 1 \
+            else t
+
+    def psum_model(self, t):
+        return Psum.apply(t, self.group(MODEL_AXIS)) if self.tp > 1 else t
+
+
+LOCAL = Plan()

@@ -49,21 +49,24 @@ def packed_matmul(x: torch.Tensor, packed: torch.Tensor,
     return y.reshape(*lead, y.shape[-1])
 
 
-def ternary_linear(x: torch.Tensor, w: torch.Tensor,
-                   qat: bool) -> torch.Tensor:
-    """y = x @ ternarize(w), STE in training (qat) or fake-quant inference."""
+def ternary_linear(x: torch.Tensor, w: torch.Tensor, qat: bool,
+                   rows=None) -> torch.Tensor:
+    """y = x @ ternarize(w), STE in training (qat) or fake-quant inference.
+    ``rows``: x holds a slice of w's rows (row-parallel over "model"), w
+    is whole, so each column's absmean covers all of them; ``rows(w_q)``
+    keeps x's slice of the fake-quantized weight."""
     w_ter, scale = quantize_ternary(w.to(torch.float32))
     w_q = (w_ter.to(torch.float32) * scale[None, :]).to(w.dtype)
     if qat:
         # straight-through: forward w_q, gradient flows to w
         w_q = w + (w_q - w).detach()
-    return x @ w_q
+    return x @ (w_q if rows is None else rows(w_q))
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, ternary: bool = False,
-           qat: bool = False) -> torch.Tensor:
+           qat: bool = False, rows=None) -> torch.Tensor:
     if ternary:
-        return ternary_linear(x, w, qat)
+        return ternary_linear(x, w, qat, rows)
     return x @ w
 
 
@@ -105,9 +108,11 @@ def mlp_ap(p: dict, x: torch.Tensor, act: str, ctx) -> torch.Tensor:
 
 
 def mlp(p: dict, x: torch.Tensor, act: str = "silu", ternary: bool = False,
-        qat: bool = False, tail: bool = False) -> torch.Tensor:
+        qat: bool = False, tail: bool = False, w2_rows=None) -> torch.Tensor:
     """SwiGLU; ``tail``: the down projection feeds only a super-block's
-    output (:func:`~repro_torch.models.common.unread_dot`)."""
+    output (:func:`~repro_torch.models.common.unread_dot`); ``w2_rows``:
+    ``w2`` is whole while the hidden is this rank's slice of d_ff (the
+    ternary route on a split "model", :func:`ternary_linear`'s ``rows``)."""
     if "w1_packed" in p:                     # packed ternary serving weights
         from ..apc.layers import current_ap_context
         ctx = current_ap_context()
@@ -119,4 +124,4 @@ def mlp(p: dict, x: torch.Tensor, act: str = "silu", ternary: bool = False,
     h = act_fn(act)(linear(x, p["w1"], ternary, qat)) \
         * linear(x, p["w3"], ternary, qat)
     with unread_dot(tail):
-        return linear(h, p["w2"], ternary, qat)
+        return linear(h, p["w2"], ternary, qat, w2_rows)

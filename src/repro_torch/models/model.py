@@ -9,12 +9,15 @@ each super-block (one repetition of the layer pattern) under the
 activation-checkpoint policy ``cfg.remat`` (:func:`remat_wrap`) while
 autograd records.
 
-``mesh=`` (keyword) takes ``None``, a list of devices (both: one device's
-math, as before), or a named :class:`~torch.distributed.device_mesh.
-DeviceMesh`: then the params and the batch are DTensors
-(:func:`~repro_torch.models.common.shard_tree`) and the whole pass runs as
-one per-rank body (:mod:`.sharded`); :func:`_constrain` places the
-logits where the reference constrains them.
+One body computes every pass, :func:`_forward_local` / :func:`_decode_local`
+over the layers of :mod:`.blocks`, on one rank's shards under a
+:class:`~.collectives.Plan`.  ``mesh=`` (keyword) takes ``None`` or a list
+of devices (one device's math: the plan's collectives are identities), or
+a named :class:`~torch.distributed.device_mesh.DeviceMesh`: then the
+params and the batch are DTensors
+(:func:`~repro_torch.models.common.shard_tree`), the body runs under one
+``local_map`` (:func:`.sharded.run_local`) and :func:`_constrain` places
+the logits where the reference constrains them.
 
 The reference casts every block's float leaves and the embedding table to
 the compute dtype inside each call, where XLA fuses the casts.  Eagerly on
@@ -38,8 +41,10 @@ from ..configs.shapes import ShapeCell
 from ..device import resolve_device
 from . import blocks as blk
 from . import sharded
-from .common import (MetaGen, dot_unread, dtype_of, embed_init, dense_init,
-                     is_named_mesh, mesh_data_axes, placements, rms_norm)
+from .collectives import LOCAL, WHOLE, Plan
+from .common import (MODEL_AXIS, MetaGen, dot_unread, dtype_of, embed_init,
+                     dense_init, is_named_mesh, mesh_data_axes, placements,
+                     rms_norm)
 
 Params = dict
 
@@ -218,36 +223,72 @@ def _constrain(x: torch.Tensor, mesh, *rest) -> torch.Tensor:
     return x if tuple(x.placements) == want else x.redistribute(mesh, want)
 
 
-def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                 embeds: torch.Tensor | None) -> torch.Tensor:
-    cdt = dtype_of(cfg.compute_dtype)
-    table = params["embed"]["table"]
-    x = table[tokens]
+def _embed(params: Params, specs, tokens, plan: Plan):
+    """The table's rows for ``tokens``: vocab-parallel where the rows are
+    split over "model" (each shard looks up the tokens of its rows, the
+    sum over "model" completes them)."""
+    spec = specs["embed"]["table"]
+    tab = plan.full(params["embed"]["table"], spec)
+    if not plan.split(spec):
+        return tab[tokens]
+    v_l = tab.shape[0]
+    local = tokens.long() - plan.rank(MODEL_AXIS) * v_l
+    ok = (local >= 0) & (local < v_l)
+    rows = tab[local.clamp(0, v_l - 1)] * ok[..., None].to(tab.dtype)
+    return plan.psum_model(rows)
+
+
+def _embed_scaled(cfg: ModelConfig, params: Params, specs, tokens,
+                  plan: Plan):
+    x = _embed(params, specs, tokens, plan)
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=x.device)
-    if embeds is not None:                       # vlm/audio frontend stub
-        x = torch.cat([embeds.to(cdt), x], dim=1)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype_of(
+            cfg.compute_dtype), device=x.device)
     return x
 
 
-def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, positions,
-               causal: bool, enc_out=None, prefix: str = "") -> torch.Tensor:
+def _logits(cfg: ModelConfig, params: Params, specs, x, plan: Plan):
+    """This rank's vocab slice of the logits (all of them where the vocab
+    is whole over "model")."""
+    if cfg.tie_embeddings:
+        w, sw = params["embed"]["table"], specs["embed"]["table"]
+    else:
+        w, sw = params["lm_head"]["w"], specs["lm_head"]["w"]
+    w = plan.full(w, sw)
+    if plan.split(sw):
+        x = plan.sum_grad(x, (MODEL_AXIS,))
+    return x @ (w.T if cfg.tie_embeddings else w)
+
+
+def _unstack_spec(tree):
+    """The specs of one super-block: the stack's leading axis dropped."""
+    if isinstance(tree, dict):
+        return {k: _unstack_spec(v) for k, v in tree.items()}
+    return tree[1:]
+
+
+def _run_stack(cfg: ModelConfig, params: Params, specs, x, positions,
+               plan: Plan, causal: bool, enc_out=None,
+               prefix: str = "") -> torch.Tensor:
     """The (prefix-named) stacked blocks, then the remainder blocks."""
     n_sb, pattern, n_rest = _layer_plan(cfg)
     if prefix == "enc_":
         n_sb, pattern, n_rest = cfg.enc_layers, [("attn", "mlp")], 0
     last = len(pattern) - 1
+    stack_key = prefix + "stack"
+    has_stack = stack_key in params and n_sb > 0
+    sb_specs = [_unstack_spec(specs[stack_key][f"pos_{i}"])
+                for i in range(len(pattern))] if has_stack else []
 
     def sb_body(x, sb_params):
         for i, (mk, fk) in enumerate(pattern):
             x = blk.block_forward(sb_params[i], x, cfg, mk, fk, positions,
-                                  causal=causal, enc_out=enc_out,
-                                  tail=i == last)
+                                  causal=causal, enc_out=enc_out, plan=plan,
+                                  specs=sb_specs[i], tail=i == last)
         return x
 
     body = remat_wrap(sb_body, cfg)
-    stack_key = prefix + "stack"
-    if stack_key in params and n_sb > 0:
+    if has_stack:
         per_pos = [_unstack(params[stack_key][f"pos_{i}"], n_sb)
                    for i in range(len(pattern))]
         for sb in range(n_sb):
@@ -255,14 +296,37 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, positions,
     for j in range(n_rest):
         mk, fk = pattern[j % len(pattern)]
         x = blk.block_forward(params[f"rest_{j}"], x, cfg, mk, fk,
-                              positions, causal=causal, enc_out=enc_out)
+                              positions, causal=causal, enc_out=enc_out,
+                              plan=plan, specs=specs[f"rest_{j}"])
     return x
 
 
-def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor):
-    if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].T
-    return x @ params["lm_head"]["w"]
+def _forward_local(cfg: ModelConfig, params: Params, specs, batch: dict,
+                   plan: Plan) -> torch.Tensor:
+    """The forward pass on this rank's shards (one device: the whole)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    x = _embed_scaled(cfg, params, specs, batch["tokens"], plan)
+    if "embeds" in batch:                        # vlm/audio frontend stub
+        x = torch.cat([batch["embeds"].to(cdt), x], dim=1)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    enc_out = None
+    if cfg.enc_layers:
+        enc_in = batch.get("enc_embeds")
+        if enc_in is None:
+            enc_in = _embed(params, specs, batch["enc_tokens"], plan)
+        e_pos = torch.arange(enc_in.shape[1], device=x.device)[None, :] \
+            .expand(*enc_in.shape[:2])
+        enc_out = _run_stack(cfg, params, specs, enc_in.to(cdt), e_pos,
+                             plan, causal=False, prefix="enc_")
+        enc_out = rms_norm(enc_out, plan.full(params["enc_norm"],
+                                              specs["enc_norm"]),
+                           cfg.norm_eps)
+    x = _run_stack(cfg, params, specs, x, positions, plan, causal=True,
+                   enc_out=enc_out)
+    x = rms_norm(x, plan.full(params["final_norm"], specs["final_norm"]),
+                 cfg.norm_eps)
+    return _logits(cfg, params, specs, x, plan)
 
 
 def forward(cfg: ModelConfig, params: Params, batch: dict, *,
@@ -271,30 +335,19 @@ def forward(cfg: ModelConfig, params: Params, batch: dict, *,
     enc_tokens/enc_embeds for enc-dec.  ``params`` from
     :func:`cast_params`.  Returns logits [B, S, V] in the compute dtype; on
     a named mesh a DTensor, batch over the data axes and vocab over
-    "model" (:func:`.sharded.forward`)."""
+    "model" (a batch of plain tensors is taken as each rank's full
+    copy)."""
     _check_cast(cfg, params)
-    if is_named_mesh(mesh):
-        logits = sharded.forward(cfg, params, batch, mesh)
-        return _constrain(logits, mesh, None, "model")
-    cdt = dtype_of(cfg.compute_dtype)
-    x = embed_tokens(cfg, params, batch["tokens"], batch.get("embeds"))
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-
-    enc_out = None
-    if cfg.enc_layers:
-        enc_in = batch.get("enc_embeds")
-        if enc_in is None:
-            enc_in = params["embed"]["table"][batch["enc_tokens"]]
-        e_pos = torch.arange(enc_in.shape[1], device=x.device)[None, :] \
-            .expand(*enc_in.shape[:2])
-        enc_out = _run_stack(cfg, params, enc_in.to(cdt), e_pos,
-                             causal=False, prefix="enc_")
-        enc_out = rms_norm(enc_out, params["enc_norm"], cfg.norm_eps)
-
-    x = _run_stack(cfg, params, x, positions, causal=True, enc_out=enc_out)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(cfg, params, x)
+    if not is_named_mesh(mesh):
+        return _forward_local(cfg, params, WHOLE, batch, LOCAL)
+    batch, b_specs = sharded.place_batch(batch, mesh)
+    plan = Plan(mesh, batch["tokens"].shape[0], cfg.attn_batch_split)
+    specs = sharded.specs_of(params, mesh)
+    out_spec = (plan.da, None) + sharded.vocab_spec(cfg, specs)
+    logits = sharded.run_local(
+        mesh, lambda p, bt: _forward_local(cfg, p, specs, bt, plan),
+        out_spec, (params, batch), (specs, b_specs))
+    return _constrain(logits, mesh, None, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +377,34 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     return cache
 
 
+def _decode_local(cfg: ModelConfig, params: Params, specs, cache: dict,
+                  c_specs, tokens, pos: int, plan: Plan) -> torch.Tensor:
+    """One decode step on this rank's shards; the cache written in
+    place."""
+    n_sb, pattern, n_rest = _layer_plan(cfg)
+    x = _embed_scaled(cfg, params, specs, tokens, plan)[:, None, :]
+    if n_sb > 0:
+        per_pos = [(_unstack(params["stack"][f"pos_{i}"], n_sb),
+                    _unstack(cache["stack"][f"pos_{i}"], n_sb),
+                    _unstack_spec(specs["stack"][f"pos_{i}"]),
+                    _unstack_spec(c_specs["stack"][f"pos_{i}"]))
+                   for i in range(len(pattern))]
+        for sb in range(n_sb):
+            for i, (mk, fk) in enumerate(pattern):
+                p_i, c_i, s_i, cs_i = per_pos[i]
+                x = blk.block_decode(p_i[sb], x, c_i[sb], cfg, mk, fk, pos,
+                                     plan=plan, specs=s_i, cache_specs=cs_i)
+    for j in range(n_rest):
+        mk, fk = pattern[j % len(pattern)]
+        x = blk.block_decode(params[f"rest_{j}"], x, cache[f"rest_{j}"],
+                             cfg, mk, fk, pos, plan=plan,
+                             specs=specs[f"rest_{j}"],
+                             cache_specs=c_specs[f"rest_{j}"])
+    x = rms_norm(x, plan.full(params["final_norm"], specs["final_norm"]),
+                 cfg.norm_eps)
+    return _logits(cfg, params, specs, x[:, 0], plan)
+
+
 def decode_step(cfg: ModelConfig, params: Params, cache: dict,
                 tokens: torch.Tensor, pos: int, *, mesh=None
                 ) -> tuple[torch.Tensor, dict]:
@@ -333,25 +414,19 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
     :func:`.sharded.cache_specs`) is updated in place and returned."""
     _check_cast(cfg, params)
     pos = int(pos)
-    if is_named_mesh(mesh):
-        logits = sharded.decode_step(cfg, params, cache, tokens, pos, mesh)
-        return _constrain(logits, mesh, "model"), cache
-    n_sb, pattern, n_rest = _layer_plan(cfg)
-    x = embed_tokens(cfg, params, tokens, None)[:, None, :]
-    if n_sb > 0:
-        per_pos = [(_unstack(params["stack"][f"pos_{i}"], n_sb),
-                    _unstack(cache["stack"][f"pos_{i}"], n_sb))
-                   for i in range(len(pattern))]
-        for sb in range(n_sb):
-            for i, (mk, fk) in enumerate(pattern):
-                p_i, c_i = per_pos[i]
-                x = blk.block_decode(p_i[sb], x, c_i[sb], cfg, mk, fk, pos)
-    for j in range(n_rest):
-        mk, fk = pattern[j % len(pattern)]
-        x = blk.block_decode(params[f"rest_{j}"], x, cache[f"rest_{j}"],
-                             cfg, mk, fk, pos)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(cfg, params, x[:, 0]), cache
+    if not is_named_mesh(mesh):
+        return _decode_local(cfg, params, WHOLE, cache, WHOLE, tokens, pos,
+                             LOCAL), cache
+    t, t_specs = sharded.place_batch({"tokens": tokens}, mesh)
+    # one token: no batch split (the reference splits sequences > 1)
+    plan = Plan(mesh, tokens.shape[0])
+    specs = sharded.specs_of(params, mesh)
+    c_specs = sharded.specs_of(cache, mesh)
+    out_spec = (plan.da,) + sharded.vocab_spec(cfg, specs)
+    logits = sharded.run_local(mesh, lambda p, c, bt: _decode_local(
+        cfg, p, specs, c, c_specs, bt["tokens"], pos, plan), out_spec,
+        (params, cache, t), (specs, c_specs, t_specs))
+    return _constrain(logits, mesh, "model"), cache
 
 
 # ---------------------------------------------------------------------------

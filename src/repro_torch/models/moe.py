@@ -29,16 +29,12 @@ reduce-scattered.
 """
 from __future__ import annotations
 
-import functools
-import math
-
 import torch
 
 from ..configs.base import MoECfg
-from .collectives import (GatherOutput, GatherWeight, Psum, all_to_all,
-                          my_slice, sum_grad_over)
+from .collectives import LOCAL, WHOLE, GatherOutput, Plan, all_to_all
 from .common import (MODEL_AXIS, act_fn, dense_init, is_named_mesh,
-                     mesh_data_axes, mesh_sizes, placements)
+                     mesh_sizes, placements)
 
 
 def init_moe(gen: torch.Generator, d_model: int, cfg: MoECfg,
@@ -106,12 +102,12 @@ def _capacity(t: int, cfg: MoECfg) -> int:
 
 
 def _moe_tp_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str,
-                 mesh=None, tp_split: bool = False):
+                 plan: Plan = LOCAL, tp_split: bool = False):
     """Dispatch on this data shard's tokens; w1/w3 [E, d, ff_l], w2
     [E, ff_l, d] whole on d; ``tp_split``: ff split over "model" (the
     experts' x takes its grads summed over "model", their output is
     summed over it)."""
-    x_exp = sum_grad_over(x, mesh, (MODEL_AXIS,)) if tp_split else x
+    x_exp = plan.sum_grad(x, (MODEL_AXIS,)) if tp_split else x
     b, s, d = x.shape
     t = b * s
     x2d = x.reshape(t, d)
@@ -126,7 +122,7 @@ def _moe_tp_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str,
                                         dim=0)
     out_buf = _expert_ffn(buf[:-1].reshape(e, capacity, d), w1, w3, w2, act)
     if tp_split:
-        out_buf = Psum.apply(out_buf, mesh.get_group(MODEL_AXIS))
+        out_buf = plan.psum_model(out_buf)
     out_flat = torch.cat([out_buf.reshape(e * capacity, d),
                           out_buf.new_zeros((1, d))], 0)
     yk = out_flat[slot]                          # [T*k, d], 0 if dropped
@@ -134,29 +130,8 @@ def _moe_tp_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str,
     return yk.reshape(t, cfg.top_k, d).sum(dim=1).reshape(b, s, d)
 
 
-def _local_moe_tp(x, router, w1, w3, w2, *, cfg: MoECfg, act: str,
-                  mesh=None, da=None):
-    """Per-data-shard body.  x [b_l, s, d] replicated over model; w1/w3
-    [E, d/dp, ff/tp], w2 [E, ff/tp, d/dp] (FSDP gathered over "data", the
-    down-projection summed over "model").  Without ``mesh``: the whole
-    layer on one device, no collective."""
-    tp_split = False
-    if mesh is not None:
-        sizes = mesh_sizes(mesh)
-        router = sum_grad_over(router, mesh, da or ())
-        pods = tuple(a for a in da or () if a != "data")
-        w1, w3, w2 = (sum_grad_over(w, mesh, pods) for w in (w1, w3, w2))
-        if sizes.get("data", 1) > 1:                     # FSDP gather
-            g, red = mesh.get_group("data"), "data" in (da or ())
-            w1 = GatherWeight.apply(w1, g, 1, red)
-            w3 = GatherWeight.apply(w3, g, 1, red)
-            w2 = GatherWeight.apply(w2, g, 2, red)
-        tp_split = sizes[MODEL_AXIS] > 1
-    return _moe_tp_core(x, router, w1, w3, w2, cfg=cfg, act=act, mesh=mesh,
-                        tp_split=tp_split)
-
-
-def _moe_ep_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str, mesh):
+def _moe_ep_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str,
+                 plan: Plan):
     """Expert-parallel dispatch; w1/w3 [E/tp, d, ff], w2 [E/tp, ff, d]
     (this rank's experts, whole).
 
@@ -165,12 +140,12 @@ def _moe_ep_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str, mesh):
     shard dispatches its own 1/tp slice.  Then: local sort-based dispatch,
     all_to_all over "model", whole-expert FFN, all_to_all back, combine,
     and a final all_gather restores model-replication of the output."""
-    group = mesh.get_group(MODEL_AXIS)
-    tp_size = mesh_sizes(mesh)[MODEL_AXIS]
-    x = sum_grad_over(x, mesh, (MODEL_AXIS,))
+    group = plan.group(MODEL_AXIS)
+    tp_size = plan.tp
+    x = plan.sum_grad(x, (MODEL_AXIS,))
     b, s, d = x.shape
     t = b * s // tp_size                         # tokens per model shard
-    x2d = my_slice(x.reshape(b * s, d), group, 0)
+    x2d = plan.mine(x.reshape(b * s, d), 0)
     gates, experts = _route(x2d, router, cfg)
     e = cfg.n_experts
     e_local = e // tp_size
@@ -194,22 +169,36 @@ def _moe_ep_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str, mesh):
     return GatherOutput.apply(y2d, group, 0).reshape(b, s, d)
 
 
-def _local_moe_ep(x, router, w1, w3, w2, *, cfg: MoECfg, act: str, mesh,
-                  da=None):
-    """Expert-parallel body: experts sharded over "model" (E_l = E/tp),
-    replicated over the data axes (their grads summed over them); the
-    router routes each model rank's own tokens (its grads summed over
-    "model" too)."""
-    router = sum_grad_over(router, mesh, (*(da or ()), MODEL_AXIS))
-    w1, w3, w2 = (sum_grad_over(w, mesh, da or ()) for w in (w1, w3, w2))
-    return _moe_ep_core(x, router, w1, w3, w2, cfg=cfg, act=act, mesh=mesh)
-
-
 def use_ep(cfg: MoECfg, mesh, tokens: int) -> bool:
     """The reference's condition for the "ep" body."""
-    tp_size = mesh_sizes(mesh)[MODEL_AXIS]
+    tp_size = mesh_sizes(mesh).get(MODEL_AXIS, 1)
     return (cfg.parallelism == "ep" and cfg.n_experts % tp_size == 0
             and tp_size > 1 and tokens % tp_size == 0)
+
+
+def moe_local(p: dict, specs, x: torch.Tensor, cfg: MoECfg, act: str,
+              plan: Plan = LOCAL) -> torch.Tensor:
+    """The layer on this rank's shards (``p`` placed by ``specs``): on the
+    AP inside ``ap_serving``; else "ep" where :func:`use_ep` allows it
+    (each model rank routes its own tokens, the experts gathered whole and
+    this rank's kept), else "tp" (the experts gathered over "data", ff
+    split over "model" where ``specs`` splits it).  Without a mesh
+    (:data:`~.collectives.LOCAL`, :data:`~.collectives.WHOLE`) the whole
+    layer on one device."""
+    from ..apc.layers import current_ap_context
+    ctx = current_ap_context()
+    if ctx is not None:                      # AP-backed serving path
+        return moe_ffn_ap(p, x, cfg, act, ctx)
+    ep = use_ep(cfg, plan.mesh, x.shape[0] * x.shape[1])
+    router = plan.full(p["router"], specs["router"], model_varying=ep)
+    if ep:
+        ws = [plan.mine(plan.full(p[k], specs[k], gather_model=True,
+                                  model_reduce=True), 0)
+              for k in ("w1", "w3", "w2")]
+        return _moe_ep_core(x, router, *ws, cfg=cfg, act=act, plan=plan)
+    ws = [plan.full(p[k], specs[k]) for k in ("w1", "w3", "w2")]
+    return _moe_tp_core(x, router, *ws, cfg=cfg, act=act, plan=plan,
+                        tp_split=plan.split(specs["w1"]))
 
 
 def moe_ffn_ap(p: dict, x: torch.Tensor, cfg: MoECfg, act: str,
@@ -233,46 +222,47 @@ def moe_ffn_ap(p: dict, x: torch.Tensor, cfg: MoECfg, act: str,
     return y2d.reshape(b, s, d).to(x.dtype)
 
 
+# the reference's in-specs of its MoE shard_map, by whether "ep" is taken
+REF_SPECS = {
+    False: {"router": (), "w1": (None, "data", MODEL_AXIS),
+            "w3": (None, "data", MODEL_AXIS), "w2": (None, MODEL_AXIS, "data")},
+    True: {"router": (), "w1": (MODEL_AXIS,), "w3": (MODEL_AXIS,),
+           "w2": (MODEL_AXIS,)},
+}
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: MoECfg, act: str, *,
             mesh=None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]: route, dispatch at capacity
     ``max(8, int(T*k*cf/E))`` (T: the tokens of one data shard under
     "tp", of one (data x model) slice under "ep"), run the experts,
-    combine; on the AP inside ``ap_serving``."""
-    from ..apc.layers import current_ap_context
-    ctx = current_ap_context()
-    if ctx is not None:                      # AP-backed serving path
-        return moe_ffn_ap(p, x, cfg, act, ctx)
-    args = (x, p["router"], p["w1"], p["w3"], p["w2"])
+    combine; on the AP inside ``ap_serving``.  On a named mesh
+    :func:`moe_local` runs under ``local_map``: ``x`` over the data axes
+    (where they divide its batch), each DTensor weight as placed; a plain
+    weight (the same on every rank) takes the reference's ``shard_map``
+    in-spec (:data:`REF_SPECS`), sliced locally."""
     if not is_named_mesh(mesh):
-        return _local_moe_tp(*args, cfg=cfg, act=act)
+        return moe_local(p, WHOLE, x, cfg, act)
     from torch.distributed.tensor import DTensor, distribute_tensor
     from torch.distributed.tensor.experimental import local_map
-    # a plain tensor is the same on every rank: place it replicated
-    args = tuple(a if isinstance(a, DTensor) else distribute_tensor(
-        a, mesh, placements((), mesh), src_data_rank=None) for a in args)
-    sizes = mesh_sizes(mesh)
-    da = mesh_data_axes(mesh)
-    if x.shape[0] % math.prod(sizes[a] for a in da) != 0:
-        da = None      # decode batch=1 etc.: replicate over the data axes
-    if use_ep(cfg, mesh, x.shape[0] * x.shape[1]):
-        body = functools.partial(_local_moe_ep, cfg=cfg, act=act, mesh=mesh,
-                                 da=da)
-        specs = ((da, None, None),                  # x
-                 (None, None),                      # router (replicated)
-                 (MODEL_AXIS, None, None),          # w1 [E/tp, d, ff]
-                 (MODEL_AXIS, None, None),          # w3
-                 (MODEL_AXIS, None, None))          # w2 [E/tp, ff, d]
-    else:
-        body = functools.partial(_local_moe_tp, cfg=cfg, act=act, mesh=mesh,
-                                 da=da)
-        specs = ((da, None, None),
-                 (None, None),
-                 (None, "data", MODEL_AXIS),
-                 (None, "data", MODEL_AXIS),
-                 (None, MODEL_AXIS, "data"))
-    fn = local_map(body,
-                   out_placements=list(placements((da, None, None), mesh)),
-                   in_placements=tuple(placements(sp, mesh) for sp in specs),
+    from .sharded import spec_of
+    names = ("router", "w1", "w3", "w2")
+    plan = Plan(mesh, x.shape[0])
+    ref = REF_SPECS[use_ep(cfg, plan.mesh, x.shape[0] * x.shape[1])]
+    ws = [p[k] if isinstance(p[k], DTensor) else distribute_tensor(
+        p[k], mesh, placements(ref[k], mesh, p[k].shape), src_data_rank=None)
+        for k in names]
+    specs = dict(zip(names, (spec_of(w, mesh) for w in ws)))
+    x_spec = (plan.da, None, None)
+
+    def body(x, *ws):
+        return moe_local(dict(zip(names, ws)), specs, x, cfg, act, plan)
+    fn = local_map(body, out_placements=list(placements(x_spec, mesh)),
+                   in_placements=(placements(x_spec, mesh),
+                                  *(placements(specs[k], mesh)
+                                    for k in names)),
                    redistribute_inputs=True, device_mesh=mesh)
-    return fn(*args)
+    if not isinstance(x, DTensor):
+        x = distribute_tensor(x, mesh, placements((), mesh),
+                              src_data_rank=None)
+    return fn(x, *ws)

@@ -1,60 +1,23 @@
-"""The model on a named mesh: one ``local_map`` body per forward pass.
+"""Placement plumbing for the model on a named mesh.
 
 On a :class:`~torch.distributed.device_mesh.DeviceMesh` the params (and a
-decode cache) are DTensors placed by the partition rules.  :func:`forward`
-and :func:`decode_step` run the whole model as ONE per-rank body under
-``local_map``, the analogue of wrapping the reference's forward in
-``shard_map``: every collective is written out (GSPMD places them in the
-reference, and nothing here places them for the port), so each rank's
-program is the single-device code on its shards, FSDP("data") x
-TP("model"):
-
-  * every weight sharded over "data" is gathered before its use (its
-    grads reduce-scattered), as FSDP does;
-  * column-parallel products (wq/wk/wv, w1/w3, the logits) keep their
-    "model" slice, row-parallel ones (wo, w2) sum their partial product
-    over "model" (Megatron's TP); attention runs on this rank's heads;
-  * where heads do not divide "model" the attention weights are gathered
-    whole and every model rank computes all heads; GQA kv heads that do
-    not divide are gathered and each rank takes those its q heads read;
-    under ``attn_batch_split`` each model rank attends over its slice of
-    the batch instead (the reference's resharding of q, k and v);
-  * the Mamba mixer runs with its weights whole: its input projection's
-    output concatenates z, x, B, C and dt, so a column split over "model"
-    would cut across them;
-  * the embedding gather is vocab-parallel (each "model" shard looks up
-    the tokens of its rows, the sum over "model" completes them); the MoE
-    runs the cores of :mod:`.moe`;
-  * a decode cache is placed as the reference's dry-run places it
-    (:func:`cache_specs`): where its positions are split (a batch the
-    data axes do not divide, kv heads that "model" does not), each rank
-    attends over its slice and the softmax is combined across the slices
-    (flash-decoding); a split SSM state is gathered for the step.
-
-Grads follow :mod:`.collectives`: an input replicated over an axis that
-its use varies on takes its grads summed over that axis (a weight over
-the data axes, whose tokens differ; the layer input over "model" before a
-column-parallel product).  DTensor's own propagation runs outside the body
-only (AdamW, the loss): on a mesh of three axes its rule search for one
-einsum takes minutes.
+decode cache) are DTensors placed by the partition rules.
+:func:`repro_torch.models.model.forward` and ``decode_step`` run their one
+per-rank body (:mod:`.blocks`, under a :class:`~.collectives.Plan`) under
+``local_map`` through :func:`run_local`: every leaf keeps its placement,
+and the specs the body reads come from the placements (:func:`specs_of`).
+Here also the placements of a batch (:func:`place_batch`) and of a decode
+cache (:func:`cache_specs`).  DTensor's own propagation runs outside the
+body only (AdamW, the loss): on a mesh of three axes its rule search for
+one einsum takes minutes.
 """
 from __future__ import annotations
 
 import math
 
-import torch
-import torch.distributed as dist
-
 from ..configs.base import ModelConfig
-from . import attention as attn
-from . import mlp as mlp_mod
-from . import moe as moe_mod
-from . import ssm as ssm_mod
-from .collectives import GatherOutput, GatherWeight, Psum, SumGrad, my_slice
-from .common import (MODEL_AXIS, dtype_of, mesh_data_axes, mesh_sizes,
-                     placements, rms_norm, unread_dot)
-
-DENSE_ATTN_MAX = 512        # below this, skip blockwise machinery
+from .collectives import axis_names, batch_axes, on_model
+from .common import MODEL_AXIS, mesh_data_axes, mesh_sizes, placements
 
 
 def spec_of(t, mesh) -> tuple:
@@ -64,485 +27,76 @@ def spec_of(t, mesh) -> tuple:
     for name, pl in zip(mesh.mesh_dim_names, getattr(t, "placements", ())):
         if isinstance(pl, Shard):
             d = pl.dim
-            spec[d] = name if spec[d] is None else _names(spec[d]) + (name,)
+            spec[d] = name if spec[d] is None else axis_names(spec[d]) + (
+                name,)
     return tuple(spec)
 
 
-def _names(ax) -> tuple:
-    return ax if isinstance(ax, tuple) else (ax,) if ax else ()
+def _flat(tree: dict) -> list:
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += _flat(v) if isinstance(v, dict) else [v]
+    return out
 
 
-def _on_model(spec) -> bool:
-    return any(MODEL_AXIS in _names(ax) for ax in spec)
+def _unflat(like: dict, leaves) -> dict:
+    it = iter(leaves)
+
+    def build(node):
+        return {k: build(node[k]) if isinstance(node[k], dict) else next(it)
+                for k in sorted(node)}
+    return build(like)
 
 
-def batch_axes(mesh, batch: int):
-    """The data axes when their product divides ``batch``, else None."""
-    da = mesh_data_axes(mesh)
-    sizes = mesh_sizes(mesh)
-    return da if batch % math.prod(sizes[a] for a in da) == 0 else None
+def specs_of(tree: dict, mesh) -> dict:
+    """The spec of every leaf of ``tree`` (DTensors) from its placements."""
+    return _unflat(tree, [spec_of(t, mesh) for t in _flat(tree)])
 
 
-class Plan:
-    """One pass's view of the mesh: the data axes the batch is split over
-    (``da``; None where they do not divide it), whether attention splits
-    heads or the batch over "model", and the gathers and grad sums that a
-    local weight needs before its use."""
+def run_local(mesh, body, out_spec, trees, specs):
+    """``body(*local_trees)`` under ``local_map``: every leaf keeps its
+    placement (no redistribution), the result is placed by ``out_spec``."""
+    from torch.distributed.tensor.experimental import local_map
+    leaves = [t for tree in trees for t in _flat(tree)]
+    in_pl = tuple(placements(s, mesh) for sp in specs for s in _flat(sp))
+    sizes = [len(_flat(tree)) for tree in trees]
 
-    def __init__(self, cfg: ModelConfig, mesh, batch: int):
-        self.cfg, self.mesh = cfg, mesh
-        self.sizes = mesh_sizes(mesh)
-        self.tp = self.sizes[MODEL_AXIS]
-        self.da = batch_axes(mesh, batch)
-        dp = math.prod(self.sizes[a] for a in self.da or ())
-        self.batch_split = (cfg.attn_batch_split and self.tp > 1
-                            and batch % (dp * self.tp) == 0)
-        self.heads = (not self.batch_split and self.tp > 1
-                      and cfg.n_heads % self.tp == 0)
-        self.kv_heads = self.heads and cfg.n_kv_heads % self.tp == 0
+    def flat_body(*args):
+        out, i = [], 0
+        for tree, n in zip(trees, sizes):
+            out.append(_unflat(tree, args[i:i + n]))
+            i += n
+        return body(*out)
 
-    def group(self, axis: str):
-        return self.mesh.get_group(axis)
-
-    def rank(self, axis: str) -> int:
-        return dist.get_rank(self.group(axis))
-
-    def sum_grad(self, t, axes):
-        for a in axes:
-            if self.sizes.get(a, 1) > 1:
-                t = SumGrad.apply(t, self.group(a))
-        return t
-
-    def full(self, w, spec, gather_model: bool = False,
-             model_reduce: bool = False, model_varying: bool = False):
-        """``w`` (this rank's shard, placed by ``spec``) ready for use on
-        this rank's tokens: gathered over "data" (and over "model" with
-        ``gather_model``: grads reduce-scattered when ``model_reduce``,
-        the use varying over "model", else sliced); grads summed over
-        every data axis of the batch it is replicated over, and over
-        "model" with ``model_varying``."""
-        held = {n for ax in spec for n in _names(ax)}
-        w = self.sum_grad(w, [a for a in self.da or () if a not in held])
-        for d, ax in enumerate(spec):
-            if "data" in _names(ax) and self.sizes.get("data", 1) > 1:
-                w = GatherWeight.apply(w, self.group("data"), d,
-                                       "data" in (self.da or ()))
-            if MODEL_AXIS in _names(ax) and gather_model and self.tp > 1:
-                w = GatherWeight.apply(w, self.group(MODEL_AXIS), d,
-                                       model_reduce)
-        if model_varying and MODEL_AXIS not in held:
-            w = self.sum_grad(w, (MODEL_AXIS,))
-        return w
-
-    def psum_model(self, t):
-        return Psum.apply(t, self.group(MODEL_AXIS))
+    fn = local_map(flat_body, out_placements=list(placements(out_spec,
+                                                             mesh)),
+                   in_placements=in_pl, redistribute_inputs=True,
+                   device_mesh=mesh)
+    return fn(*leaves)
 
 
-# ---------------------------------------------------------------------------
-# Layers on local shards
-# ---------------------------------------------------------------------------
-
-def _attention(pa, sa, h, cfg: ModelConfig, plan: Plan, positions, theta,
-               causal: bool, window: int, tail: bool, kv_src=None,
-               use_rope: bool = True, dense: bool = False):
-    """Self-attention (cross-attention from ``kv_src``) on this rank's
-    heads or batch slice; ``wo``'s partial product summed over "model"
-    when the heads are split."""
-    b, s, _ = h.shape
-    heads = plan.heads and _on_model(sa["wq"])
-    kv_heads = heads and plan.kv_heads and _on_model(sa["wk"])
-    bsplit = plan.batch_split and s > 1
-    varying = heads or bsplit           # q, k, v differ over "model"
-    src = h if kv_src is None else kv_src
-    if varying:
-        h = plan.sum_grad(h, (MODEL_AXIS,))
-        src = h if kv_src is None else plan.sum_grad(src, (MODEL_AXIS,))
-    # k/v: column-parallel where their columns are split over "model";
-    # where the kv heads do not divide it, the columns are gathered after
-    # the product (each rank then takes the heads its q heads read)
-    kv_cols = varying and not bsplit and _on_model(sa["wk"])
-    pe = {}
-    for name in ("wq", "bq"):
-        if name in pa:
-            pe[name] = plan.full(pa[name], sa[name], gather_model=not heads,
-                                 model_reduce=bsplit)
-    for name in ("wk", "wv", "bk", "bv"):
-        if name in pa:
-            pe[name] = plan.full(pa[name], sa[name],
-                                 gather_model=not kv_cols,
-                                 model_reduce=varying, model_varying=varying)
-    for name in ("q_norm", "k_norm"):
-        if name in pa:
-            pe[name] = plan.full(pa[name], sa[name], model_varying=varying)
-    hq = cfg.n_heads // (plan.tp if heads else 1)
-    hk = cfg.n_kv_heads // (plan.tp if kv_heads else 1)
-    hd, ks = cfg.head_dim_, src.shape[1]
-    q = h @ pe["wq"]
-    k = src @ pe["wk"]
-    v = src @ pe["wv"]
-    if "bq" in pe:
-        q, k, v = q + pe["bq"], k + pe["bk"], v + pe["bv"]
-    if kv_cols and not kv_heads:
-        g = plan.group(MODEL_AXIS)
-        k, v = (GatherWeight.apply(t, g, 2, True) for t in (k, v))
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, ks, hk, hd)
-    v = v.reshape(b, ks, hk, hd)
-    if "q_norm" in pe:
-        q = rms_norm(q, pe["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, pe["k_norm"], cfg.norm_eps)
-    if use_rope:
-        q = attn.apply_rope(q, positions, theta)
-        k = attn.apply_rope(k, positions, theta)
-    if heads and not kv_heads:               # the kv this rank's q heads read
-        n_rep = cfg.n_heads // cfg.n_kv_heads
-        r = plan.rank(MODEL_AXIS)
-        k = attn._repeat_kv(k, n_rep)[:, :, r * hq:(r + 1) * hq]
-        v = attn._repeat_kv(v, n_rep)[:, :, r * hq:(r + 1) * hq]
-    if bsplit:                               # this rank's slice of the batch
-        g = plan.group(MODEL_AXIS)
-        q, k, v = (my_slice(t, g, 0) for t in (q, k, v))
-    if dense or s <= DENSE_ATTN_MAX:
-        o = attn.attend_dense(q, k, v, causal=causal, window=window)
-    else:
-        o = attn.attend_blockwise(q, k, v, causal=causal, window=window)
-    if bsplit:
-        o = GatherOutput.apply(o, plan.group(MODEL_AXIS), 0)
-    wo = plan.full(pa["wo"], sa["wo"], gather_model=not heads)
-    with unread_dot(tail):
-        y = o.reshape(b, s, -1) @ wo
-    return plan.psum_model(y) if heads else y
+def vocab_spec(cfg: ModelConfig, specs) -> tuple:
+    """The logits' vocab dim: over "model" where the head's is."""
+    sw = specs["embed"]["table"] if cfg.tie_embeddings \
+        else specs["lm_head"]["w"]
+    return (MODEL_AXIS,) if on_model(sw) else (None,)
 
 
-def _mlp(pm, sm, h, cfg: ModelConfig, plan: Plan, tail: bool):
-    split = plan.tp > 1 and _on_model(sm["w1"])
-    if split:
-        h = plan.sum_grad(h, (MODEL_AXIS,))
-    pe = {k: plan.full(pm[k], sm[k]) for k in ("w1", "w3", "w2")}
-    y = mlp_mod.mlp(pe, h, cfg.act, ternary=cfg.ternary.enabled, tail=tail)
-    return plan.psum_model(y) if split else y
+def batch_specs(batch: dict, mesh) -> dict:
+    """Batch tensors: dim 0 over the data axes (where they divide it)."""
+    return {k: (batch_axes(mesh, v.shape[0]),) + (None,) * (v.ndim - 1)
+            for k, v in batch.items()}
 
 
-def _mamba(pm, sm, h, cfg: ModelConfig, plan: Plan, tail: bool):
-    pe = {k: plan.full(pm[k], sm[k], gather_model=True) for k in pm}
-    return ssm_mod.mamba_forward(pe, h, cfg.ssm, cfg.d_model, cfg.norm_eps,
-                                 tail=tail)
-
-
-def _moe(pm, sm, h, cfg: ModelConfig, plan: Plan):
-    mesh = plan.mesh
-    ep = moe_mod.use_ep(cfg.moe, mesh, h.shape[0] * h.shape[1])
-    # under EP each model rank routes its own slice of the tokens
-    router = plan.full(pm["router"], sm["router"], model_varying=ep)
-    if ep:
-        # experts whole on their owner: gather, keep this rank's experts
-        ws = [my_slice(plan.full(pm[k], sm[k], gather_model=True,
-                                 model_reduce=True),
-                       plan.group(MODEL_AXIS), 0) for k in ("w1", "w3", "w2")]
-        return moe_mod._moe_ep_core(h, router, *ws, cfg=cfg.moe, act=cfg.act,
-                                    mesh=mesh)
-    ws = [plan.full(pm[k], sm[k]) for k in ("w1", "w3", "w2")]
-    return moe_mod._moe_tp_core(h, router, *ws, cfg=cfg.moe, act=cfg.act,
-                                mesh=mesh,
-                                tp_split=plan.tp > 1 and _on_model(sm["w1"]))
-
-
-def _block(p, sp, x, cfg: ModelConfig, plan: Plan, mk: str, fk: str,
-           positions, causal: bool, enc_out, tail: bool):
-    from .blocks import _rope_theta
-    h = rms_norm(x, plan.full(p["norm1"], sp["norm1"]), cfg.norm_eps)
-    mixer_tail = tail and fk == "none"
-    if mk == "mamba":
-        x = x + _mamba(p["mamba"], sp["mamba"], h, cfg, plan, mixer_tail)
-    else:
-        window = cfg.sliding_window if mk == "local" else 0
-        x = x + _attention(p["attn"], sp["attn"], h, cfg, plan, positions,
-                           _rope_theta(cfg, mk), causal, window, mixer_tail,
-                           use_rope=cfg.use_rope)
-    if enc_out is not None and "cross" in p:
-        h = rms_norm(x, plan.full(p["norm_cross"], sp["norm_cross"]),
-                     cfg.norm_eps)
-        x = x + _attention(p["cross"], sp["cross"], h, cfg, plan, positions,
-                           cfg.rope_theta, False, 0, False, kv_src=enc_out,
-                           use_rope=False, dense=True)
-    if fk == "none":
-        return x
-    h = rms_norm(x, plan.full(p["norm2"], sp["norm2"]), cfg.norm_eps)
-    if fk == "moe":
-        return x + _moe(p["moe"], sp["moe"], h, cfg, plan)
-    return x + _mlp(p["mlp"], sp["mlp"], h, cfg, plan, tail)
-
-
-def _embed(params, specs, tokens, plan: Plan):
-    """Vocab-parallel row gather (the table's rows over "model")."""
-    spec = specs["embed"]["table"]
-    tab = plan.full(params["embed"]["table"], spec)
-    if not (plan.tp > 1 and _on_model(spec)):
-        return tab[tokens]
-    v_l = tab.shape[0]
-    local = tokens.long() - plan.rank(MODEL_AXIS) * v_l
-    ok = (local >= 0) & (local < v_l)
-    rows = tab[local.clamp(0, v_l - 1)] * ok[..., None].to(tab.dtype)
-    return plan.psum_model(rows)
-
-
-def _head(cfg: ModelConfig, params, specs) -> tuple:
-    if cfg.tie_embeddings:
-        return params["embed"]["table"], specs["embed"]["table"], True
-    return params["lm_head"]["w"], specs["lm_head"]["w"], False
-
-
-def _logits(cfg: ModelConfig, params, specs, x, plan: Plan):
-    """This rank's vocab slice of the logits (all of them where the vocab
-    does not divide "model")."""
-    w, sw, tied = _head(cfg, params, specs)
-    w = plan.full(w, sw)
-    if plan.tp > 1 and _on_model(sw):
-        x = plan.sum_grad(x, (MODEL_AXIS,))
-    return x @ (w.T if tied else w)
-
-
-def _unstack_spec(tree):
-    if isinstance(tree, dict):
-        return {k: _unstack_spec(v) for k, v in tree.items()}
-    return tree[1:]
-
-
-def _run_stack(cfg: ModelConfig, params, specs, x, positions, plan: Plan,
-               causal: bool, enc_out=None, prefix: str = ""):
-    from .model import _layer_plan, _unstack, remat_wrap
-    n_sb, pattern, n_rest = _layer_plan(cfg)
-    if prefix == "enc_":
-        n_sb, pattern, n_rest = cfg.enc_layers, [("attn", "mlp")], 0
-    last = len(pattern) - 1
-    stack_key = prefix + "stack"
-    sb_specs = [_unstack_spec(specs[stack_key][f"pos_{i}"])
-                for i in range(len(pattern))] if stack_key in specs else []
-
-    def sb_body(x, sb_params):
-        for i, (mk, fk) in enumerate(pattern):
-            x = _block(sb_params[i], sb_specs[i], x, cfg, plan, mk, fk,
-                       positions, causal, enc_out, i == last)
-        return x
-
-    body = remat_wrap(sb_body, cfg)
-    if stack_key in params and n_sb > 0:
-        per_pos = [_unstack(params[stack_key][f"pos_{i}"], n_sb)
-                   for i in range(len(pattern))]
-        for sb in range(n_sb):
-            x = body(x, [p[sb] for p in per_pos])
-    for j in range(n_rest):
-        mk, fk = pattern[j % len(pattern)]
-        x = _block(params[f"rest_{j}"], specs[f"rest_{j}"], x, cfg, plan,
-                   mk, fk, positions, causal, enc_out, False)
-    return x
-
-
-def _forward_local(cfg: ModelConfig, params, specs, batch, plan: Plan):
-    cdt = dtype_of(cfg.compute_dtype)
-    x = _embed(params, specs, batch["tokens"], plan)
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=x.device)
-    if "embeds" in batch:                    # vlm/audio frontend stub
-        x = torch.cat([batch["embeds"].to(cdt), x], dim=1)
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    enc_out = None
-    if cfg.enc_layers:
-        enc_in = batch.get("enc_embeds")
-        if enc_in is None:
-            enc_in = _embed(params, specs, batch["enc_tokens"], plan)
-        e_pos = torch.arange(enc_in.shape[1], device=x.device)[None, :] \
-            .expand(*enc_in.shape[:2])
-        enc_out = _run_stack(cfg, params, specs, enc_in.to(cdt), e_pos,
-                             plan, causal=False, prefix="enc_")
-        enc_out = rms_norm(enc_out, plan.full(params["enc_norm"],
-                                              specs["enc_norm"]),
-                           cfg.norm_eps)
-    x = _run_stack(cfg, params, specs, x, positions, plan, causal=True,
-                   enc_out=enc_out)
-    x = rms_norm(x, plan.full(params["final_norm"], specs["final_norm"]),
-                 cfg.norm_eps)
-    return _logits(cfg, params, specs, x, plan)
-
-
-# ---------------------------------------------------------------------------
-# Decode on local shards
-# ---------------------------------------------------------------------------
-
-def _shard_index(plan: Plan, axes) -> tuple[int, int]:
-    """(this rank's index, the count) of the shards of a dim split over
-    ``axes`` (the first axis the major one, as DTensor orders them)."""
-    idx, n = 0, 1
-    for a in axes:
-        idx = idx * plan.sizes[a] + plan.rank(a)
-        n *= plan.sizes[a]
-    return idx, n
-
-
-def _attend_seq_split(q, kv: dict, pos: int, ring: bool, offset: int,
-                      length: int, plan: Plan, axes):
-    """q [B, 1, H, hd] against this rank's slice of the cache positions
-    (``offset`` on, of ``length``): the softmax's max, sum and weighted
-    values combined over ``axes`` (flash-decoding), in fp32."""
-    from .collectives import all_reduce
-    k, v = kv["k"], kv["v"]
-    n_rep = q.shape[2] // k.shape[2]
-    k, v = attn._repeat_kv(k, n_rep), attn._repeat_kv(v, n_rep)
-    sc = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                      k.to(torch.float32)) * q.shape[-1] ** -0.5
-    valid = min(pos + 1, length) if ring else pos + 1
-    idx = offset + torch.arange(k.shape[1], device=q.device)
-    sc = sc.masked_fill(idx >= valid, attn.NEG_INF)
-    m = sc.amax(-1, keepdim=True)
-    for a in axes:
-        m = all_reduce(m, plan.group(a), dist.ReduceOp.MAX)
-    pr = torch.exp(sc - m)
-    den = pr.sum(-1, keepdim=True)
-    acc = torch.einsum("bhqk,bkhd->bqhd", pr, v.to(torch.float32))
-    for a in axes:
-        den = all_reduce(den, plan.group(a))
-        acc = all_reduce(acc, plan.group(a))
-    return (acc / den.permute(0, 2, 1, 3)).to(q.dtype)
-
-
-def _decode_attention(pa, sa, h, kv: dict, kv_spec, cfg: ModelConfig,
-                      plan: Plan, pos: int, theta, ring: bool,
-                      write: bool = True, use_rope: bool = True):
-    """One token's attention against this rank's cache shard, placed by
-    ``kv_spec`` (:func:`cache_specs`): kv heads over "model" (this rank's
-    q heads read them), or positions over the axes of dim 1 (each rank
-    attends over its slice, the softmax combined over them), or whole.
-    The token's k/v are written in place first (by the rank that holds
-    its slot) unless ``write`` is off: the cross-attention cache."""
-    heads = MODEL_AXIS in _names(kv_spec[2])
-    seq_axes = _names(kv_spec[1])
-    b = h.shape[0]
-    g = plan.group(MODEL_AXIS)
-
-    def mine(name, t, dim):
-        """This rank's heads of a product whose weight is whole over
-        "model" (the cross-attention's weights are replicated)."""
-        return my_slice(t, g, dim) if heads and not _on_model(sa[name]) \
-            else t
-
-    pe = {n: plan.full(pa[n], sa[n], gather_model=not heads)
-          for n in ("wq", "bq", "q_norm", "wk", "wv", "bk", "bv", "k_norm")
-          if n in pa}
-    hd = cfg.head_dim_
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=h.device)
-    q = h @ pe["wq"]
-    if "bq" in pe:
-        q = q + pe["bq"]
-    q = mine("wq", q.reshape(b, 1, -1, hd), 2)
-    if "q_norm" in pe:
-        q = rms_norm(q, pe["q_norm"], cfg.norm_eps)
-    if use_rope:
-        q = attn.apply_rope(q, positions, theta)
-    local_len = kv["k"].shape[1]
-    idx, n = _shard_index(plan, seq_axes)
-    length = local_len * n
-    if write:
-        k = h @ pe["wk"]
-        v = h @ pe["wv"]
-        if "bk" in pe:
-            k, v = k + pe["bk"], v + pe["bv"]
-        k = mine("wk", k.reshape(b, 1, -1, hd), 2)
-        v = mine("wv", v.reshape(b, 1, -1, hd), 2)
-        if "k_norm" in pe:
-            k = rms_norm(k, pe["k_norm"], cfg.norm_eps)
-        if use_rope:
-            k = attn.apply_rope(k, positions, theta)
-        slot = pos % length if ring else min(pos, length - 1)
-        if slot // local_len == idx:         # this rank holds the slot
-            kv["k"][:, slot % local_len] = k[:, 0].to(kv["k"].dtype)
-            kv["v"][:, slot % local_len] = v[:, 0].to(kv["v"].dtype)
-    if seq_axes:
-        o = _attend_seq_split(q, kv, pos, ring, idx * local_len, length,
-                              plan, seq_axes)
-    else:
-        o = attn.attend_decode(q, kv, pos, ring=ring)
-    wo = mine("wo", plan.full(pa["wo"], sa["wo"], gather_model=not heads), 0)
-    y = o.reshape(b, 1, -1) @ wo
-    return plan.psum_model(y) if heads else y
-
-
-def _mamba_decode(pm, sm, h, state: dict, st_spec: dict, cfg: ModelConfig,
-                  plan: Plan):
-    """One Mamba step, the weights whole; a state split over "model" is
-    gathered for the step and this rank's part written back."""
-    from .collectives import gather
-    pe = {k: plan.full(v, sm[k], gather_model=True) for k, v in pm.items()}
-    g = plan.group(MODEL_AXIS)
-    split = {k: next((d for d, ax in enumerate(st_spec[k])
-                      if MODEL_AXIS in _names(ax)), None) for k in state}
-    full = {k: t if split[k] is None or plan.tp == 1 else
-            gather(t, g, split[k]) for k, t in state.items()}
-    o, new = ssm_mod.mamba_decode_step(pe, h, full, cfg.ssm, cfg.d_model,
-                                       cfg.norm_eps)
-    for k, val in new.items():
-        if split[k] is not None and plan.tp > 1:
-            val = my_slice(val, g, split[k])
-        state[k].copy_(val)
-    return o
-
-
-def _decode_block(p, sp, x, cache, cs, cfg: ModelConfig, plan: Plan,
-                  mk: str, fk: str, pos: int):
-    from .blocks import _rope_theta
-    h = rms_norm(x, plan.full(p["norm1"], sp["norm1"]), cfg.norm_eps)
-    if mk == "mamba":
-        x = x + _mamba_decode(p["mamba"], sp["mamba"], h, cache["mamba"],
-                              cs["mamba"], cfg, plan)
-    else:
-        x = x + _decode_attention(p["attn"], sp["attn"], h, cache["kv"],
-                                  cs["kv"]["k"], cfg, plan, pos,
-                                  _rope_theta(cfg, mk), ring=mk == "local",
-                                  use_rope=cfg.use_rope)
-    if "cross_kv" in cache and "cross" in p:
-        h = rms_norm(x, plan.full(p["norm_cross"], sp["norm_cross"]),
-                     cfg.norm_eps)
-        clen = cache["cross_kv"]["k"].shape[1] * _shard_index(
-            plan, _names(cs["cross_kv"]["k"][1]))[1]
-        x = x + _decode_attention(p["cross"], sp["cross"], h,
-                                  cache["cross_kv"], cs["cross_kv"]["k"],
-                                  cfg, plan, clen - 1, cfg.rope_theta,
-                                  ring=False, write=False, use_rope=False)
-    if fk == "none":
-        return x
-    h = rms_norm(x, plan.full(p["norm2"], sp["norm2"]), cfg.norm_eps)
-    if fk == "moe":
-        return x + _moe(p["moe"], sp["moe"], h, cfg, plan)
-    return x + _mlp(p["mlp"], sp["mlp"], h, cfg, plan, False)
-
-
-def _decode_local(cfg: ModelConfig, params, specs, cache, c_specs, tokens,
-                  pos: int, plan: Plan):
-    from .model import _layer_plan, _unstack
-    n_sb, pattern, n_rest = _layer_plan(cfg)
-    cdt = dtype_of(cfg.compute_dtype)
-    x = _embed(params, specs, tokens, plan)[:, None, :]
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=x.device)
-    if n_sb > 0:
-        per_pos = [(_unstack(params["stack"][f"pos_{i}"], n_sb),
-                    _unstack(cache["stack"][f"pos_{i}"], n_sb),
-                    _unstack_spec(specs["stack"][f"pos_{i}"]),
-                    _unstack_spec(c_specs["stack"][f"pos_{i}"]))
-                   for i in range(len(pattern))]
-        for sb in range(n_sb):
-            for i, (mk, fk) in enumerate(pattern):
-                p_i, c_i, s_i, cs_i = per_pos[i]
-                x = _decode_block(p_i[sb], s_i, x, c_i[sb], cs_i, cfg, plan,
-                                  mk, fk, pos)
-    for j in range(n_rest):
-        mk, fk = pattern[j % len(pattern)]
-        x = _decode_block(params[f"rest_{j}"], specs[f"rest_{j}"], x,
-                          cache[f"rest_{j}"], c_specs[f"rest_{j}"], cfg,
-                          plan, mk, fk, pos)
-    x = rms_norm(x, plan.full(params["final_norm"], specs["final_norm"]),
-                 cfg.norm_eps)
-    return _logits(cfg, params, specs, x[:, 0], plan)
+def place_batch(batch: dict, mesh) -> tuple[dict, dict]:
+    """(``batch`` as DTensors, its specs): a plain tensor is taken as each
+    rank's full copy and split locally by :func:`batch_specs`."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    b_specs = batch_specs(batch, mesh)
+    return {k: v if isinstance(v, DTensor) else distribute_tensor(
+        v, mesh, placements(b_specs[k], mesh), src_data_rank=None)
+        for k, v in batch.items()}, b_specs
 
 
 def cache_specs(cfg: ModelConfig, cache: dict, mesh) -> dict:
@@ -585,98 +139,3 @@ def cache_specs(cfg: ModelConfig, cache: dict, mesh) -> dict:
         return ((None,) if stacked else ()) + tuple(axes)
 
     return walk(cache, "")
-
-
-# ---------------------------------------------------------------------------
-# Entry points: the whole pass under one local_map
-# ---------------------------------------------------------------------------
-
-def _flat(tree: dict) -> list:
-    out = []
-    for k in sorted(tree):
-        v = tree[k]
-        out += _flat(v) if isinstance(v, dict) else [v]
-    return out
-
-
-def _unflat(like: dict, leaves) -> dict:
-    it = iter(leaves)
-
-    def build(node):
-        return {k: build(node[k]) if isinstance(node[k], dict) else next(it)
-                for k in sorted(node)}
-    return build(like)
-
-
-def _specs(tree: dict, mesh) -> dict:
-    return _unflat(tree, [spec_of(t, mesh) for t in _flat(tree)])
-
-
-def _run(mesh, body, out_spec, trees, specs):
-    """``body(*local_trees)`` under ``local_map``: every leaf keeps its
-    placement (no redistribution), the result is placed by ``out_spec``."""
-    from torch.distributed.tensor.experimental import local_map
-    leaves = [t for tree in trees for t in _flat(tree)]
-    in_pl = tuple(placements(s, mesh) for sp in specs for s in _flat(sp))
-    sizes = [len(_flat(tree)) for tree in trees]
-
-    def flat_body(*args):
-        out, i = [], 0
-        for tree, n in zip(trees, sizes):
-            out.append(_unflat(tree, args[i:i + n]))
-            i += n
-        return body(*out)
-
-    fn = local_map(flat_body, out_placements=list(placements(out_spec,
-                                                             mesh)),
-                   in_placements=in_pl, redistribute_inputs=True,
-                   device_mesh=mesh)
-    return fn(*leaves)
-
-
-def _vocab_spec(cfg: ModelConfig, specs) -> tuple:
-    sw = specs["embed"]["table"] if cfg.tie_embeddings \
-        else specs["lm_head"]["w"]
-    return (MODEL_AXIS,) if _on_model(sw) else (None,)
-
-
-def batch_specs(batch: dict, mesh) -> dict:
-    """Batch tensors: dim 0 over the data axes (where they divide it)."""
-    return {k: (batch_axes(mesh, v.shape[0]),) + (None,) * (v.ndim - 1)
-            for k, v in batch.items()}
-
-
-def forward(cfg: ModelConfig, params: dict, batch: dict, mesh):
-    """Logits [B, S, V]: a DTensor, batch over the data axes, vocab over
-    "model" where it divides.  ``params`` and ``batch`` DTensors (a batch
-    of plain tensors is taken as each rank's full copy)."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
-    b_specs = batch_specs(batch, mesh)
-    batch = {k: v if isinstance(v, DTensor) else distribute_tensor(
-        v, mesh, placements(b_specs[k], mesh), src_data_rank=None)
-        for k, v in batch.items()}
-    plan = Plan(cfg, mesh, batch["tokens"].shape[0])
-    specs = _specs(params, mesh)
-    out_spec = (plan.da, None) + _vocab_spec(cfg, specs)
-    return _run(mesh, lambda p, bt: _forward_local(cfg, p, specs, bt, plan),
-                out_spec, (params, batch), (specs, b_specs))
-
-
-def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
-                pos: int, mesh):
-    """One decode step on ``mesh``: logits [B, V] (a DTensor); ``cache``
-    (DTensors placed by :func:`cache_specs`) written in place."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
-    t_spec = batch_specs({"tokens": tokens}, mesh)
-    if not isinstance(tokens, DTensor):
-        tokens = distribute_tensor(tokens, mesh,
-                                   placements(t_spec["tokens"], mesh),
-                                   src_data_rank=None)
-    # one token: no batch split (the reference splits sequences > 1)
-    plan = Plan(cfg.with_(attn_batch_split=False), mesh, tokens.shape[0])
-    specs = _specs(params, mesh)
-    c_specs = _specs(cache, mesh)
-    out_spec = (plan.da,) + _vocab_spec(cfg, specs)
-    return _run(mesh, lambda p, c, t: _decode_local(
-        cfg, p, specs, c, c_specs, t["tokens"], pos, plan), out_spec,
-        (params, cache, {"tokens": tokens}), (specs, c_specs, t_spec))

@@ -179,18 +179,21 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWCfg,
         if microbatches == 1:
             loss, grads = value_and_grad(loss_fn, params, batch)
         else:
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=tree_leaves(params)[0].device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            # the sums start from the first microbatch's (fp32) values, so
+            # that on a mesh they are DTensors like the values they add
+            loss = grads = None
             for i in range(microbatches):
                 mb = {}
                 for k, v in batch.items():
                     bsz = v.shape[0] // microbatches
                     mb[k] = v[i * bsz:(i + 1) * bsz]
                 loss_i, g_i = value_and_grad(loss_fn, params, mb)
-                grads = tree_map(torch.add, grads, g_i)
-                loss = loss + loss_i
+                if grads is None:
+                    loss = loss_i.to(torch.float32)
+                    grads = tree_map(lambda g: g.to(torch.float32), g_i)
+                else:
+                    loss = loss + loss_i
+                    grads = tree_map(torch.add, grads, g_i)
             loss = loss / microbatches
             grads = tree_map(lambda g: g / microbatches, grads)
         if named:

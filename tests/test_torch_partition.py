@@ -146,6 +146,39 @@ def test_data_parallel_mesh_counts_an_eighth_of_one_rank():
     assert eight["collectives"]["count"] > 0
 
 
+@pytest.mark.parametrize("kind,passes", (("train", 3), ("prefill", 1)))
+def test_model_split_mesh_flops_match_a_hand_count(kind, passes):
+    """The dry-run's per-rank FLOPs against a count by hand, not by
+    ``torch.utils.flop_counter``: qwen3-0.6b smoke (remat "none") on
+    (data 1, model 1) runs every product of the pass, 2·M·K·N each (the
+    projections, the two attention einsums over all S x S positions, the
+    tied logits), times 3 for a train step (each product's two grads);
+    on (1, 2) every product is split over "model" (heads, kv heads, d_ff
+    and the vocab all divide 2), so a rank runs exactly half."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    cfg = configs.get_smoke_config("qwen3-0.6b").with_(remat="none")
+    b, s = 8, 16
+    t = b * s
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    layer = (2 * t * d * h * hd + 2 * 2 * t * d * hk * hd     # q; k, v
+             + 2 * 2 * b * h * s * s * hd                     # qk, pv
+             + 2 * t * h * hd * d + 3 * 2 * t * d * cfg.d_ff)  # wo; mlp
+    hand = passes * (cfg.n_layers * layer + 2 * t * d * cfg.vocab)
+    cell = ShapeCell("tp", kind, s, b)
+    flops = {}
+    try:
+        for shape in ((1, 1), (1, 2)):
+            flops[shape] = dryrun.run_cell(
+                cfg, cell, dryrun.build_mesh(shape, ("data", "model")))["flops"]
+            dist.destroy_process_group()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert flops[(1, 1)] == hand
+    assert flops[(1, 2)] == hand / 2
+
+
 def test_meshes_named_and_listed():
     """make_production_mesh raises without enough ranks (naming the fake
     backend) and builds the reference's axes over a fake group;

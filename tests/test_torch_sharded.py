@@ -74,6 +74,16 @@ def run_ranks(tmp_path, world: int, body: str) -> dict:
 GRAD_CASES = (("qwen3-0.6b", (1, 2, 4)),       # q heads split, kv gathered
               ("jamba-v0.1-52b", (2, 2, 2)),   # mamba whole, MoE TP
               ("qwen3-moe-30b-a3b", (1, 2, 4)))  # MoE EP
+# (arch, mesh, overrides of the smoke config): the routes of the per-rank
+# body that GRAD_CASES leave out
+MORE_GRAD_CASES = (
+    ("yi-34b", (1, 1, 8), {}),            # heads divide no "model": whole
+    ("qwen2-72b", (2, 2, 2), {}),         # qkv bias
+    ("phi-3-vision-4.2b", (2, 2, 2), {}),  # frontend embeds
+    ("seamless-m4t-medium", (2, 2, 2), {}),  # encoder, cross-attention
+    ("qwen3-0.6b", (1, 2, 4), {"attn_batch_split": True}),
+    ("qwen3-0.6b", (1, 2, 4), {"ternary": {"qat": True}}),   # QAT, w2 whole
+)
 # (arch, mesh, batch): decode against the cache shardings of the reference
 DECODE_CASES = (("qwen3-0.6b", (1, 2, 4), 4),   # positions over model
                 ("qwen3-0.6b", (2, 2, 2), 1),   # positions over pod x data
@@ -112,20 +122,42 @@ _EIGHT = """
                                  for a, w in leaves),
                 "placements": str(placed)}
 
-    def grads_case(arch, shape):
-        from torch.distributed.device_mesh import init_device_mesh
+    def smoke_cfg(arch, overrides):
         from repro_torch.configs import get_smoke_config
+        from repro_torch.configs.base import TernaryCfg
+        cfg = get_smoke_config(arch)
+        over = dict(overrides)
+        if "ternary" in over:
+            over["ternary"] = TernaryCfg(**over["ternary"])
+        return cfg.with_(**over)
+
+    def smoke_batch(cfg, b=8, s=16):
+        # tokens and targets (and the frontend's embeds, the encoder's
+        # enc_embeds) from a seed
+        rng = np.random.default_rng(0)
+        n_front = cfg.n_frontend_tokens if cfg.frontend else 0
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                  (b, s - n_front))).int()
+                 for k in ("tokens", "targets")}
+        if n_front:
+            batch["embeds"] = torch.from_numpy(rng.standard_normal(
+                (b, n_front, cfg.d_model)).astype(np.float32))
+        if cfg.enc_layers:
+            batch["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+                (b, s, cfg.d_model)).astype(np.float32))
+        return batch
+
+    def grads_case(arch, shape, overrides=()):
+        from torch.distributed.device_mesh import init_device_mesh
         from repro_torch.train import optimizer as opt
         from repro_torch.train import train_step as ts
-        cfg = get_smoke_config(arch).with_(compute_dtype="float32",
-                                           remat="dots")
+        cfg = smoke_cfg(arch, overrides).with_(compute_dtype="float32",
+                                               remat="dots")
         if cfg.moe:
             cfg = cfg.with_(moe=cfg.moe.__class__(**{
                 **cfg.moe.__dict__, "capacity_factor": 8.0,
                 "parallelism": "ep"}))
-        rng = np.random.default_rng(0)
-        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (8, 16)))
-                 .int() for k in ("tokens", "targets")}
+        batch = smoke_batch(cfg)
         state = ts.init_train_state(cfg, seed=0, device="cpu")
         l1, g1 = ts.value_and_grad(ts.make_loss_fn(cfg), state["params"],
                                    batch)
@@ -170,10 +202,57 @@ _EIGHT = """
                                          .max()))
         return {"worst": worst}
 
+    def microbatch_case():
+        # two microbatches a step on (2, 2, 2) against one rank's
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train import train_step as ts
+        cfg = smoke_cfg("qwen3-0.6b", {}).with_(compute_dtype="float32",
+                                                remat="none")
+        batch = smoke_batch(cfg)
+        state = ts.init_train_state(cfg, seed=0, device="cpu")
+        one, m1 = ts.make_train_step(cfg, opt.AdamWCfg(lr=1e-3),
+                                     microbatches=2)(state, batch)
+        mesh = init_device_mesh("cpu", (2, 2, 2),
+                                mesh_dim_names=("pod", "data", "model"))
+        many, m8 = ts.make_train_step(cfg, opt.AdamWCfg(lr=1e-3),
+                                      microbatches=2, mesh=mesh)(state, batch)
+        return {"loss": [float(m1["loss"]),
+                         float(m8["loss"].full_tensor())],
+                "param_err": max(
+                    float((a.full_tensor() - w).abs().max()) for a, w in zip(
+                        opt.tree_leaves(many["params"]),
+                        opt.tree_leaves(one["params"])))}
+
+    def ternary_forward_case():
+        # fake-quantized ternary MLPs (d_ff over "model" = 4): the logits
+        # against one rank's
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.models import model as M
+        from repro_torch.models.common import partition_spec_tree, shard_tree
+        cfg = smoke_cfg("qwen3-0.6b", {"ternary": {"enabled": True}}).with_(
+            compute_dtype="float32")
+        params = M.cast_params(cfg, M.init_params(cfg, seed=0, device="cpu"))
+        mesh = init_device_mesh("cpu", (1, 2, 4),
+                                mesh_dim_names=("pod", "data", "model"))
+        placed = shard_tree(params, partition_spec_tree(params, mesh=mesh),
+                            mesh)
+        batch = {"tokens": smoke_batch(cfg)["tokens"]}
+        with torch.no_grad():
+            want = M.forward(cfg, params, batch)
+            got = M.forward(cfg, placed, batch, mesh=mesh).full_tensor()
+        return {"worst": float((got - want).abs().max()),
+                "scale": float(want.abs().max())}
+
     def body(rank, world):
-        out = {"train_step": train_step_case()}
+        out = {"train_step": train_step_case(),
+               "microbatches": microbatch_case(),
+               "ternary_forward": ternary_forward_case()}
         for arch, shape in CASES:
             out[arch] = grads_case(arch, tuple(shape))
+        for arch, shape, over in MORE:
+            out[f"{arch} {shape} {over}"] = grads_case(arch, tuple(shape),
+                                                       over)
         for arch, shape, batch in DECODES:
             out[f"decode {arch} {shape} {batch}"] = decode_case(
                 arch, tuple(shape), batch)
@@ -186,6 +265,7 @@ def eight_ranks(tmp_path_factory):
     """One run of 8 gloo ranks for the train step and the grad cases."""
     return run_ranks(tmp_path_factory.mktemp("eight"), 8,
                      f"CASES = {GRAD_CASES!r}\nDECODES = {DECODE_CASES!r}\n"
+                     f"MORE = {MORE_GRAD_CASES!r}\n"
                      + textwrap.dedent(_EIGHT))
 
 
@@ -208,6 +288,37 @@ def test_sharded_grads_match_one_rank(eight_ranks, arch, shape):
     res = eight_ranks[arch]
     assert abs(res["loss"][0] - res["loss"][1]) < TOL, res
     assert res["worst"] < TOL, res
+
+
+@pytest.mark.parametrize("arch,shape,overrides", MORE_GRAD_CASES)
+def test_sharded_grads_more_routes(eight_ranks, arch, shape, overrides):
+    """The routes of the per-rank body the cases above leave out, grads
+    (remat "dots", fp32) against one rank's within 1e-4 of each leaf's
+    largest |g|: attention weights gathered whole where the heads divide
+    no "model" rank, qkv bias, the frontend's embeds, the encoder and
+    cross-attention, ``attn_batch_split``, and QAT (ternary w2 whole over
+    "model" for its absmean, straight-through grads)."""
+    res = eight_ranks[f"{arch} {tuple(shape)} {overrides}"]
+    assert abs(res["loss"][0] - res["loss"][1]) < TOL, res
+    assert res["worst"] < TOL, res
+
+
+def test_sharded_train_step_microbatches(eight_ranks):
+    """A step of two microbatches on (2, 2, 2) (the batch a DTensor split
+    in two) equals the same step on one rank: loss and params within
+    1e-4."""
+    res = eight_ranks["microbatches"]
+    assert np.isfinite(res["loss"][0]), res
+    assert abs(res["loss"][0] - res["loss"][1]) < TOL, res
+    assert res["param_err"] < TOL, res
+
+
+def test_sharded_ternary_forward_matches_one_rank(eight_ranks):
+    """The fake-quantized ternary MLP with d_ff split over "model" = 4:
+    each column's absmean scale covers all of d_ff, so the logits equal
+    one rank's within 1e-4 of their largest |value|."""
+    res = eight_ranks["ternary_forward"]
+    assert res["worst"] < TOL * max(1.0, res["scale"]), res
 
 
 @pytest.mark.parametrize("arch,shape,batch", DECODE_CASES)
