@@ -132,6 +132,23 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
       ``moe_ffn(mesh=...)`` bit-identical to no mesh (EP is not taken at
       model = 1).  No kernel lies on this path.  The group is torn down at
       the end.
+   h. Serving on the named mesh (``Engine(mesh=)``, ``BatchServer``) and
+      the port's examples.  qwen3-0.6b at full width and depth, packed
+      MLPs, bf16 compute, on a (data=1, model=1) mesh of a 1-rank NCCL
+      group as in 3g: ``Engine(mesh=)`` at ``launch/serve.py``'s defaults
+      (batch 4, 16-token prompts, 32 greedy tokens, a 128-token cache:
+      the CUDA-core kernel at M = 4) and at batch 16 (the tensor-core
+      kernel at M = 16), tokens bit-identical to the meshless engine's and
+      the same launches of the same kernel, in turns (plain, mesh, mesh,
+      plain), host ms per decode step and tokens/s of both; a
+      ``BatchServer`` wave of two requests on the mesh, tokens equal to
+      sequential serving on it, one wave a step.  Then
+      ``examples/torch_{quickstart,ap_arithmetic,ternary_inference}.py``
+      on the card and on the CPU: every printed line equal (the packed
+      matmul's error line is held to its tolerance instead: the CPU
+      compares the plain version with itself), the program kernel and the
+      CUDA-core kernel launched; ``torch_serve_lm`` (8 new tokens of 24)
+      and ``torch_train_lm`` (60 steps of 200, "LEARNED") on the card.
 4. Times: CUDA-event medians of each kernel, its plain version and, for the
    matmul, the library product on a dense weight, beside each kernel's
    bound, at the main paths' shapes (and qwen2-72b's MLP width for the
@@ -296,6 +313,16 @@ MESH_STEPS = 3
 MESH_TOL = {"loss": 1e-6, "grad_norm": 1e-5}
 MESH_MOE_ARCH = "qwen3-moe-30b-a3b"
 MESH_MOE_TOKENS = (2, 512)
+# phase 3h: the engine on the mesh at batch 4 (CUDA cores) and 16 (tensor
+# cores), launch/serve.py's prompt, new tokens and cache otherwise; a
+# BatchServer wave of two requests (batch, new tokens each)
+MESH_SERVE_BATCHES = (4, 16)
+MESH_WAVE = (2, 8)
+# the examples whose every printed number must equal the CPU run's, and
+# the cut counts of the other two (their full counts: 24 tokens, 200 steps)
+EXAMPLES_SAME = ("quickstart", "ap_arithmetic", "ternary_inference")
+EXAMPLES_CUT = {"serve_lm": ("--new-tokens", "8"),
+                "train_lm": ("--steps", "60")}
 # ternary-matmul timings: (model, K, N, M), K x N the model's w1
 MATMUL_TIMES = tuple(("qwen3-0.6b", *QWEN3_06B, m)
                     for m in (1, 4, 8, 16, 2048)) + \
@@ -2678,6 +2705,196 @@ def mesh_moe(mesh, dev, card: str, log) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3h: serving on the named mesh, and the examples
+# ---------------------------------------------------------------------------
+
+def phase_mesh_serve_path(dev, card: str, log) -> dict:
+    """A 1-rank NCCL group, the (data=1, model=1) DeviceMesh on the card:
+    qwen3-0.6b's engine on the mesh against none at batch 4 and 16, a
+    BatchServer wave on the mesh against sequential serving; then the
+    examples.  The group is torn down after the serving part, whatever
+    happens."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_",
+                                 dir=os.path.join(ROOT, "build"))
+    dist.init_process_group(
+        "nccl", rank=0, world_size=1, device_id=dev,
+        store=dist.FileStore(os.path.join(store_dir, "store"), 1))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        res = {"mesh": str(mesh), "card": card}
+        res["engine"], res["wave"] = mesh_serving(mesh, dev, card, log)
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    res["examples"] = run_examples(dev, card, log)
+    return res
+
+
+def mesh_serving(mesh, dev, card: str, log) -> tuple[dict, dict]:
+    """qwen3-0.6b (packed MLPs, bf16, seed 0): ``Engine(mesh=)`` against
+    the meshless engine at each of MESH_SERVE_BATCHES, in turns (plain,
+    mesh, mesh, plain); then a BatchServer wave on the mesh."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ternary_matmul import kernel as tk
+    from repro_torch.models import model
+    from repro_torch.models.quant import quantize_model_params
+    from repro_torch.serve import BatchServer, Engine, ServeCfg
+    cfg = get_config(MODEL_ARCH)
+    params = model.cast_params(cfg, quantize_model_params(
+        model.init_params(cfg, seed=SEED, device=dev)))
+    _, s_prompt, n_new, max_len = SERVE_SHAPE
+    serve = ServeCfg(max_len=max_len)
+    engines = {"plain": Engine(cfg, params, serve, device=dev),
+               "mesh": Engine(cfg, params, serve, mesh=mesh)}
+    n_steps = s_prompt + n_new - 1
+    out = {}
+    for b in MESH_SERVE_BATCHES:
+        prompts = np.random.default_rng(SEED).integers(
+            1, cfg.vocab, (b, s_prompt), dtype=np.int32)
+        kernel = tk.kernel_for(torch.bfloat16, b)
+        runs = {"plain": [], "mesh": []}
+        for route in ("plain", "mesh", "mesh", "plain"):
+            eng = engines[route]
+            before = matmul_launches()
+            toks = eng.generate(prompts, n_new)
+            moved = matmul_launches_since(before)
+            lat = eng.last_latency
+            runs[route].append({
+                "tokens": toks, "launches": moved,
+                "decode_ms_per_step": lat["decode_ms"]
+                / lat["n_decode_steps"],
+                "tokens_per_s": b * n_new / lat["request_ms"] * 1e3,
+                "request_ms": lat["request_ms"]})
+        want = {k: (3 * cfg.n_layers * n_steps if k == kernel else 0)
+                for k in tk.launch_counts}
+        same = all(np.array_equal(r["tokens"], runs["plain"][0]["tokens"])
+                   for rs in runs.values() for r in rs)
+        rec = {route: [{k: v for k, v in r.items() if k != "tokens"}
+                       for r in rs] for route, rs in runs.items()}
+        rec.update(batch=b, kernel=kernel, bit_identical=same,
+                   launches_expected=want)
+        out[f"batch {b}"] = rec
+        for route in ("plain", "mesh"):
+            step_ms = ", ".join("%.2f" % r["decode_ms_per_step"]
+                                for r in rec[route])
+            tok_s = ", ".join("%.1f" % r["tokens_per_s"] for r in rec[route])
+            log(f"  engine {route:5s} batch {b}, {s_prompt}-token prompts, "
+                f"{n_new} new tokens, cache {max_len} ({kernel} at M = {b}):"
+                f" {step_ms} ms a decode step (host clock), {tok_s} "
+                f"tokens/s; launches {rec[route][0]['launches']}; card "
+                f"{card}")
+        log(f"  engine batch {b}: mesh tokens "
+            f"{'bit-identical to' if same else 'DIFFER from'} the meshless "
+            f"engine's")
+        check(same, f"Engine(mesh=) batch {b}: tokens differ from no mesh")
+        for route, rs in rec.items():
+            if route in ("plain", "mesh"):
+                check(all(r["launches"] == want for r in rs),
+                      f"engine {route} batch {b}: launches "
+                      f"{[r['launches'] for r in rs]}, expected {want}")
+    del engines
+    # a BatchServer wave of two requests on the mesh
+    b, n_wave = MESH_WAVE
+    rng = np.random.default_rng(SEED + 1)
+    reqs = [rng.integers(1, cfg.vocab, (b, s_prompt), dtype=np.int32)
+            for _ in range(2)]
+    eng = Engine(cfg, params, serve, mesh=mesh)
+    want = [eng.generate(p, n_wave) for p in reqs]
+    t0 = time.perf_counter()
+    with BatchServer(eng) as srv:
+        handles = [srv.submit(p, n_wave) for p in reqs]
+        got = [h.result(timeout=600) for h in handles]
+    wall = time.perf_counter() - t0
+    same = all(np.array_equal(g, w) for g, w in zip(got, want))
+    wave = {"requests": 2, "batch": b, "new": n_wave, "n_waves": srv.n_waves,
+            "equal_to_sequential": same, "wall_s": wall}
+    log(f"  BatchServer on the mesh: 2 requests of batch {b}, {n_wave} new "
+        f"tokens, {srv.n_waves} waves in {wall:.2f} s; tokens "
+        f"{'equal to' if same else 'DIFFER from'} sequential serving")
+    check(same, "BatchServer on the mesh: tokens differ from sequential")
+    check(srv.n_waves == s_prompt + n_wave - 1,
+          f"BatchServer on the mesh: {srv.n_waves} waves, expected one a "
+          f"step")
+    return out, wave
+
+
+def run_example(name: str, device: str, *argv: str) -> tuple[float, str]:
+    """``examples/torch_<name>.py``'s ``main`` on ``device``: (seconds,
+    what it printed).  Its failed self-check is a failed check here."""
+    import contextlib
+    import importlib.util
+    import io
+    path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            mod.main(["--device", device, *argv])
+    except SystemExit as e:
+        check(False, f"example torch_{name} on {device}: {e}")
+    return time.perf_counter() - t0, buf.getvalue()
+
+
+def run_examples(dev, card: str, log) -> dict:
+    """EXAMPLES_SAME on the card and on the CPU, every printed line equal
+    (the packed kernel's error line held to its check instead); the two
+    others on the card at EXAMPLES_CUT."""
+    res = {}
+    for name in EXAMPLES_SAME:
+        before = {**kernel_launches(), **matmul_launches()}
+        s_card, on_card = run_example(name, str(dev))
+        moved = {k: n - before[k]
+                 for k, n in {**kernel_launches(),
+                              **matmul_launches()}.items()}
+        s_cpu, on_cpu = run_example(name, "cpu")
+        a, b = on_card.splitlines(), on_cpu.splitlines()
+        differ = [(x, y) for x, y in zip(a, b) if x != y and not (
+            x.startswith("packed kernel max err")
+            and y.startswith("packed kernel max err"))]
+        res[name] = {"card_s": s_card, "cpu_s": s_cpu, "lines": len(a),
+                     "launches": moved, "differ": differ,
+                     "printed": on_card}
+        n_differ = len(differ) + abs(len(a) - len(b))
+        log(f"  example torch_{name}: {len(a)} lines, card {s_card:.2f} s, "
+            f"CPU {s_cpu:.2f} s; lines that differ: {n_differ}; launches on "
+            f"the card {moved}")
+        for line in a:
+            log(f"    {line}")
+        check(len(a) == len(b) and not differ,
+              f"example torch_{name}: the card printed {differ[:2]} where "
+              f"the CPU printed otherwise")
+    check(res["ap_arithmetic"]["launches"]["tap_run_program"] > 0,
+          "torch_ap_arithmetic launched no program kernel on the card")
+    tern = res["ternary_inference"]["launches"]
+    check(tern["tap_run_program"] > 0 and tern["ternary_matmul"] > 0,
+          f"torch_ternary_inference on the card: launches {tern}")
+    for name, argv in EXAMPLES_CUT.items():
+        secs, printed = run_example(name, str(dev), *argv)
+        res[name] = {"card_s": secs, "argv": list(argv), "printed": printed}
+        log(f"  example torch_{name} {' '.join(argv)} on the card, "
+            f"{secs:.2f} s:")
+        for line in printed.splitlines():
+            log(f"    {line}")
+    check("LEARNED" in res["train_lm"]["printed"],
+          "torch_train_lm did not learn")
+    return res
+
+
+def kernel_launches() -> dict[str, int]:
+    from repro_torch.kernels.tap_pass import kernel
+    return dict(kernel.launch_counts)
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -3176,9 +3393,16 @@ def main() -> int:
             "named mesh",
             lambda dev, log: phase_mesh_path(dev, card, log), ())
         log(f"  phase 3g took {report['mesh_path']['seconds']:.3f} s")
+        log("[main path: qwen3-0.6b served on a named mesh, the examples]")
+        report["mesh_serve_path"] = main_path(
+            "mesh serving and examples",
+            lambda dev, log: phase_mesh_serve_path(dev, card, log),
+            ("ternary_matmul", "ternary_matmul_tc", "tap_run_program"))
+        log(f"  phase 3h took {report['mesh_serve_path']['seconds']:.3f} s")
         launches = {k: sum(report[p]["launches"][k] for p in (
             "main_path", "matmul_path", "pool_path", "model_path",
-            "ap_serve_path", "train_path", "mesh_path")) for k in KERNELS}
+            "ap_serve_path", "train_path", "mesh_path", "mesh_serve_path"))
+            for k in KERNELS}
 
         log("[times]")
         report["times"] = phase_times(dev, card, log)

@@ -53,9 +53,9 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _named(shape, axes)
 
 
-def make_smoke_mesh() -> list[str]:
-    """One CPU replica (CPU tests)."""
-    return ["cpu"]
+def make_smoke_mesh(device="cpu") -> list:
+    """One replica: the CPU (CPU tests), or ``device``."""
+    return [device]
 
 
 def make_elastic_mesh(devices=None):

@@ -171,14 +171,28 @@ def _attention(pa, sa, h, cfg: ModelConfig, plan: Plan, positions, theta,
 
 def _mlp(pm, sm, h, cfg: ModelConfig, plan: Plan, tail: bool):
     """SwiGLU (packed, AP-served, ternary or QAT: :func:`.mlp.mlp`), its
-    d_ff split over "model" where ``sm`` splits it."""
-    split = plan.split(sm["w1"]) if "w1" in pm else False
+    d_ff split over "model" where ``sm`` splits it in both ``w1`` and
+    ``w2`` (or the packed ``w1_packed`` and ``w2_packed``: each rank's
+    down projection is then a partial sum, which ``w2_scale``, per output
+    column, leaves exact); where only ``w1``'s is (``w2_packed``'s d_ff/16
+    words do not divide "model"), every leaf is gathered whole.  On the
+    AP inside ``ap_serving`` on a mesh, every rank runs the whole
+    projection (:meth:`~.collectives.Plan.whole`)."""
+    from ..apc.layers import current_ap_context
+    packed = "w1_packed" in pm
+    if plan.mesh is not None and packed \
+            and current_ap_context() is not None:
+        return plan.whole(lambda pw, x: mlp_mod.mlp(pw, x, cfg.act), pm,
+                          sm, h)
+    split = (plan.split(sm["w1_packed" if packed else "w1"])
+             and plan.split(sm["w2_packed" if packed else "w2"]))
     if split:
         h = plan.sum_grad(h, (MODEL_AXIS,))
     ternary = cfg.ternary.enabled or cfg.ternary.qat
-    whole_w2 = split and ternary
-    pe = {k: plan.full(w, sm[k], gather_model=whole_w2 and k == "w2",
-                       model_reduce=True) for k, w in pm.items()}
+    whole_w2 = split and ternary and not packed
+    pe = {k: plan.full(w, sm[k],
+                       gather_model=not split or (whole_w2 and k == "w2"),
+                       model_reduce=split) for k, w in pm.items()}
     y = mlp_mod.mlp(pe, h, cfg.act, ternary=ternary, qat=cfg.ternary.qat,
                     tail=tail,
                     w2_rows=(lambda w: plan.mine(w, 0)) if whole_w2 else None)

@@ -220,5 +220,28 @@ class Plan:
     def psum_model(self, t):
         return Psum.apply(t, self.group(MODEL_AXIS)) if self.tp > 1 else t
 
+    def whole(self, fn, p: dict, specs, x):
+        """``fn(p_whole, x_whole)`` as one device computes it, then this
+        rank's rows: ``x`` (batch first) gathered whole over the batch's
+        data axes, every weight of ``p`` whole over "data" and "model".
+        Every rank runs the same ``fn`` on the same operands (the AP route,
+        whose projections take one activation scale over all of x, as the
+        reference's host-orchestrated AP path computes them on global
+        arrays).  Inference only: no grads flow."""
+        if self.mesh is None:
+            return fn(p, x)
+        axes = self.da or ()
+        for a in reversed(axes):     # the minor axis first: pod stays major
+            if self.sizes[a] > 1:
+                x = gather(x, self.group(a), 0)
+        pw = {k: self.full(w, specs[k], gather_model=True)
+              for k, w in p.items()}
+        y = fn(pw, x)
+        idx, n = 0, 1
+        for a in axes:
+            idx, n = idx * self.sizes[a] + self.rank(a), n * self.sizes[a]
+        rows = y.shape[0] // n
+        return y.narrow(0, idx * rows, rows)
+
 
 LOCAL = Plan()

@@ -277,15 +277,20 @@ def placements(spec: tuple, mesh, shape=None) -> tuple:
     return tuple(out)
 
 
-def shard_tree(tree: dict, specs: dict, mesh) -> dict:
+def shard_tree(tree: dict, specs: dict, mesh, src_data_rank=0) -> dict:
     """Every tensor leaf of ``tree`` as a DTensor on ``mesh`` placed by its
-    spec (``specs`` shaped as ``tree``).  A ``meta`` leaf becomes its local
-    shard without communication."""
-    from torch.distributed.tensor import distribute_tensor
+    spec (``specs`` shaped as ``tree``): rank ``src_data_rank``'s values,
+    or, with ``None``, each rank's own tree sliced locally without
+    communication (as a ``meta`` leaf always is).  A leaf that is a
+    DTensor already is taken as placed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     def walk(node, spec):
         if isinstance(node, dict):
             return {k: walk(v, spec[k]) for k, v in node.items()}
-        return distribute_tensor(node, mesh, placements(spec, mesh))
+        if isinstance(node, DTensor):
+            return node
+        return distribute_tensor(node, mesh, placements(spec, mesh),
+                                 src_data_rank=src_data_rank)
 
     return walk(tree, specs)

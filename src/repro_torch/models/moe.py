@@ -179,7 +179,8 @@ def use_ep(cfg: MoECfg, mesh, tokens: int) -> bool:
 def moe_local(p: dict, specs, x: torch.Tensor, cfg: MoECfg, act: str,
               plan: Plan = LOCAL) -> torch.Tensor:
     """The layer on this rank's shards (``p`` placed by ``specs``): on the
-    AP inside ``ap_serving``; else "ep" where :func:`use_ep` allows it
+    AP inside ``ap_serving`` (on a mesh every rank runs the whole layer
+    and keeps its rows, :meth:`~.collectives.Plan.whole`); else "ep" where :func:`use_ep` allows it
     (each model rank routes its own tokens, the experts gathered whole and
     this rank's kept), else "tp" (the experts gathered over "data", ff
     split over "model" where ``specs`` splits it).  Without a mesh
@@ -188,7 +189,8 @@ def moe_local(p: dict, specs, x: torch.Tensor, cfg: MoECfg, act: str,
     from ..apc.layers import current_ap_context
     ctx = current_ap_context()
     if ctx is not None:                      # AP-backed serving path
-        return moe_ffn_ap(p, x, cfg, act, ctx)
+        return plan.whole(lambda pw, xw: moe_ffn_ap(pw, xw, cfg, act, ctx),
+                          p, specs, x)
     ep = use_ep(cfg, plan.mesh, x.shape[0] * x.shape[1])
     router = plan.full(p["router"], specs["router"], model_varying=ep)
     if ep:

@@ -52,6 +52,20 @@ it enters ``trace.disabled()``, the engine's device, ``ap_serving`` and
 its ``ap_request_scope`` itself.  Only the wave's leader launches the
 merged graph's program kernels, on the device's current stream; the
 dispatcher reads the kernels' launch counts after the joins.
+
+On a named mesh (``engine.mesh`` a ``DeviceMesh``; one process per rank,
+each with its own server, every rank submitting the same requests in the
+same order) every step issues collectives, which the ranks' process
+groups match by the order they are issued in.  So the ranks must step the
+same requests in the same order, and do: rank 0 alone decides admission
+and broadcasts its decisions and each wave's membership over the mesh's
+ranks (:class:`_MeshOrder`, on the dispatcher thread; the other ranks
+follow, and fail rather than step a different wave).  A merged AP wave's
+worker threads take turns (:class:`WaveMerger` with ``ordered``): slot 0
+runs its step up to its next graph call, then slot 1, and so on, and again
+after each merged run, so each rank issues its collectives in slot order.
+Those stretches of the step are host work under one interpreter lock, so
+the turns cost little; the merged graph still runs once for the wave.
 """
 from __future__ import annotations
 
@@ -106,10 +120,19 @@ class WaveMerger:
     """
 
     def __init__(self, runtime, n_slots: int, *, timeout: float = 120.0,
-                 track_power: bool = False):
+                 track_power: bool = False, ordered: bool = False):
         self.runtime = runtime
         self.n_slots = n_slots
+        self._timeout = timeout
         self._barrier = threading.Barrier(n_slots, timeout=timeout)
+        # ordered: the slots run their stretches between graph calls one at
+        # a time, in slot order (the turn passes at each graph call and at
+        # the end of a step; the leader hands it back to slot 0 after each
+        # merged run), so the collectives they issue keep one order
+        self._ordered = ordered
+        self._turn = 0
+        self._cv = threading.Condition()
+        self._aborted = False
         self._tls = threading.local()
         self._graphs: list[ProgramGraph | None] = [None] * n_slots
         self._views: list[MergedGraphView | None] = [None] * n_slots
@@ -137,7 +160,29 @@ class WaveMerger:
 
     def abort(self) -> None:
         """Break the rendezvous (peers see :class:`WaveAborted`)."""
+        with self._cv:
+            self._aborted = True
+            self._cv.notify_all()
         self._barrier.abort()
+
+    def enter(self, slot: int) -> None:
+        """With ``ordered``, wait until it is ``slot``'s turn."""
+        if not self._ordered:
+            return
+        with self._cv:
+            if not self._cv.wait_for(
+                    lambda: self._turn == slot or self._aborted,
+                    timeout=self._timeout) or self._turn != slot:
+                raise WaveAborted(f"slot {slot}'s turn never came")
+
+    def leave(self, slot: int) -> None:
+        """With ``ordered``, pass the turn on from ``slot`` (if held)."""
+        if not self._ordered:
+            return
+        with self._cv:
+            if self._turn == slot:
+                self._turn = slot + 1
+                self._cv.notify_all()
 
     def run_graph(self, ctx, graph: ProgramGraph, sink: APSink):
         slot = self._tls.slot
@@ -145,15 +190,19 @@ class WaveMerger:
         self.profiles[slot].append(
             [(n.compiled, n.rows, n.deps, n.upload_cycles)
              for n in graph.nodes])
+        self.leave(slot)
         try:
             if self._barrier.wait() == 0:        # all deposited; 0 leads
                 try:
                     self._merge_and_run(ctx)
                 except BaseException as e:       # peers must not hang
                     self._run_error = e
+                with self._cv:
+                    self._turn = 0
             self._barrier.wait()                 # results ready
         except threading.BrokenBarrierError as e:
             raise WaveAborted("wave rendezvous broke") from e
+        self.enter(slot)
         if self._run_error is not None:
             raise WaveAborted("merged wave run failed") from self._run_error
         view = self._views[slot]
@@ -273,7 +322,9 @@ def wave_cost_cycles(profiles, *, n_arrays: int, rows_per_array: int,
 class RequestHandle:
     """Future for one submitted request."""
 
-    def __init__(self, prompts: np.ndarray, n_new: int, cross_embeds=None):
+    def __init__(self, prompts: np.ndarray, n_new: int, cross_embeds=None,
+                 seq: int = 0):
+        self.seq = seq                  # submission index on this server
         self.prompts = np.asarray(prompts)
         self.n_new = int(n_new)
         self.cross_embeds = cross_embeds
@@ -360,6 +411,10 @@ class BatchServer:
         self.max_queue_depth = 0
         self._closed = False
         self._last_profile: list[list[tuple]] | None = None
+        self._n_submitted = 0
+        self._submit_lock = threading.Lock()
+        self._order = (_MeshOrder(engine.mesh, engine.device)
+                       if engine.named else None)
         self._dispatcher = threading.Thread(target=self._dispatch,
                                             name="ap-serve-dispatch",
                                             daemon=True)
@@ -377,11 +432,14 @@ class BatchServer:
         on a future nothing will resolve."""
         if self._closed or not self._dispatcher.is_alive():
             raise RuntimeError("BatchServer is closed")
-        h = RequestHandle(prompts, n_new, cross_embeds)
-        try:
-            self.queue.put(h)
-        except ClosedQueue:
-            raise RuntimeError("BatchServer is closed") from None
+        with self._submit_lock:          # seq and queue order agree
+            h = RequestHandle(prompts, n_new, cross_embeds,
+                              seq=self._n_submitted)
+            try:
+                self.queue.put(h)
+            except ClosedQueue:
+                raise RuntimeError("BatchServer is closed") from None
+            self._n_submitted += 1
         return h
 
     def close(self, wait: bool = True) -> None:
@@ -411,20 +469,30 @@ class BatchServer:
 
     def _dispatch(self) -> None:
         reg = get_registry()
+        order = self._order
         try:
             while True:
-                self._drain_submissions(block=not (self._active
-                                                   or self._pending))
-                self._admit(reg)
-                if not self._active:
-                    if self.queue.closed and self.queue.qsize() == 0 \
-                            and not self._pending:
+                if order is not None and not order.leader:
+                    if not self._follow(reg):
                         return
-                    if not self._pending:
+                else:
+                    self._drain_submissions(
+                        block=not (self._active or self._pending),
+                        timeout=None if order is None else order.heartbeat)
+                    decisions = self._admit(reg)
+                    stop = (not self._active and self.queue.closed
+                            and self.queue.qsize() == 0
+                            and not self._pending)
+                    if order is not None:
+                        order.share({"decisions": decisions, "stop": stop,
+                                     "wave": self._wave_seqs()})
+                    if stop:
+                        return
+                    # nothing active: wait for submissions (pending but
+                    # inadmissible with nothing active cannot happen: an
+                    # empty bank admits)
+                    if not self._active:
                         continue
-                    # pending-but-inadmissible with nothing active cannot
-                    # happen (an empty bank admits); defensive fall-through
-                    continue                 # pragma: no cover
                 self._run_wave(reg)
                 self._retire(reg)
         finally:
@@ -454,10 +522,13 @@ class BatchServer:
                 reg.counter("serve.stranded").inc()
         self._active = []
 
-    def _drain_submissions(self, block: bool) -> None:
+    def _drain_submissions(self, block: bool,
+                           timeout: float | None = None) -> None:
+        """Move queued submissions to the pending deque; with ``block``,
+        wait for the first (at most ``timeout`` seconds)."""
         while True:
             try:
-                item = self.queue.get(timeout=None if block else 0)
+                item = self.queue.get(timeout=timeout if block else 0)
             except StopIteration:
                 return
             except _queue.Empty:
@@ -483,30 +554,19 @@ class BatchServer:
         reg.gauge("serve.admission_wave_cycles").set(cost)
         return cost <= mwc
 
-    def _admit(self, reg) -> None:
+    def _admit(self, reg) -> list[tuple[int, bool]]:
+        """Admit or reject pending requests; the decisions, ``(seq,
+        admitted)`` in order."""
+        decisions = []
         while self._pending:
             if self._admissible(reg):
                 h = self._pending.popleft()
-                try:
-                    sink = (APSink(radix=self.engine.ap_ctx.radix)
-                            if self.engine.ap_ctx is not None else None)
-                    req = self.engine.new_request(h.prompts, h.n_new,
-                                                  h.cross_embeds)
-                except Exception as e:       # bad request: fail just it
-                    h._finish(error=e)
-                    continue
-                self._active.append(_Active(h, req, sink))
-                self.n_admitted += 1
-                reg.counter("serve.admitted").inc()
+                decisions.append((h.seq, True))
+                self._start(h, reg)
             elif self.admission.policy == "reject":
                 h = self._pending.popleft()
-                h._finish(error=AdmissionRejected(
-                    "admission control: bank saturated "
-                    f"(inflight={len(self._active)}, "
-                    f"max_inflight={self.admission.max_inflight}, "
-                    f"max_wave_cycles={self.admission.max_wave_cycles})"))
-                self.n_rejected += 1
-                reg.counter("serve.rejected").inc()
+                decisions.append((h.seq, False))
+                self._reject(h, reg)
             else:
                 break                        # policy=queue: wait
         # per-handle queued accounting: a request counts as "queued" once,
@@ -518,6 +578,67 @@ class BatchServer:
         self.max_queue_depth = max(self.max_queue_depth, len(self._pending))
         reg.gauge("serve.inflight").set(len(self._active))
         reg.gauge("serve.queued").set(len(self._pending))
+        return decisions
+
+    def _start(self, h: RequestHandle, reg) -> None:
+        """Admit ``h``: its request and sink join the active set (a request
+        the engine refuses fails alone)."""
+        try:
+            sink = (APSink(radix=self.engine.ap_ctx.radix)
+                    if self.engine.ap_ctx is not None else None)
+            req = self.engine.new_request(h.prompts, h.n_new,
+                                          h.cross_embeds)
+        except Exception as e:               # bad request: fail just it
+            h._finish(error=e)
+            return
+        self._active.append(_Active(h, req, sink))
+        self.n_admitted += 1
+        reg.counter("serve.admitted").inc()
+
+    def _reject(self, h: RequestHandle, reg) -> None:
+        h._finish(error=AdmissionRejected(
+            "admission control: bank saturated "
+            f"(inflight={len(self._active)}, "
+            f"max_inflight={self.admission.max_inflight}, "
+            f"max_wave_cycles={self.admission.max_wave_cycles})"))
+        self.n_rejected += 1
+        reg.counter("serve.rejected").inc()
+
+    def _wave_seqs(self) -> list[int]:
+        return [a.handle.seq for a in self._active if not a.request.done]
+
+    def _take(self, seq: int) -> RequestHandle:
+        """This rank's handle of submission ``seq`` (waiting for it)."""
+        while not self._pending or self._pending[-1].seq < seq:
+            try:
+                self._pending.append(self.queue.get(timeout=None))
+            except StopIteration:
+                raise RuntimeError(
+                    f"rank 0 admitted request {seq}, which this rank's "
+                    f"server was never given") from None
+        h = self._pending.popleft()
+        if h.seq != seq:
+            raise RuntimeError(f"rank 0 decided on request {seq} where "
+                               f"this rank has {h.seq} next")
+        return h
+
+    def _follow(self, reg) -> bool:
+        """A rank other than 0 on a named mesh: apply rank 0's admission
+        decisions; False when rank 0 stops.  Raises where this rank's wave
+        would differ from rank 0's."""
+        plan = self._order.share(None)
+        for seq, admitted in plan["decisions"]:
+            h = self._take(seq)
+            if admitted:
+                self._start(h, reg)
+            else:
+                self._reject(h, reg)
+        if plan["stop"]:
+            return False
+        if self._wave_seqs() != plan["wave"]:
+            raise RuntimeError(f"wave {self._wave_seqs()} differs from rank "
+                               f"0's {plan['wave']}")
+        return True
 
     def _run_wave(self, reg) -> None:
         stepping = [a for a in self._active if not a.request.done]
@@ -537,7 +658,8 @@ class BatchServer:
                 # the step profile the admission oracle prices with
                 merger = WaveMerger(ctx.runtime, len(stepping),
                                     timeout=self.wave_timeout,
-                                    track_power=self._track_power)
+                                    track_power=self._track_power,
+                                    ordered=self._order is not None)
                 # pre-wave checkpoints: if ANY slot errors, the barrier
                 # breaks and every sibling sees WaveAborted mid-step —
                 # these snapshots are what lets them roll back and re-run
@@ -619,6 +741,7 @@ class BatchServer:
                      slot: int) -> None:
         try:
             merger.bind(slot)
+            merger.enter(slot)
             # worker threads start with a fresh context: enter the device
             # and the AP hook themselves, route stats into this request's
             # sink, and silence the (thread-unsafe) tracer — the dispatcher
@@ -630,6 +753,8 @@ class BatchServer:
         except BaseException as e:
             act.error = e
             merger.abort()                  # never strand the peers
+        finally:
+            merger.leave(slot)
 
     def _retire(self, reg) -> None:
         still = []
@@ -658,3 +783,32 @@ class BatchServer:
                 still.append(act)
         self._active = still
         reg.gauge("serve.inflight").set(len(self._active))
+
+
+class _MeshOrder:
+    """Rank 0's serving decisions, broadcast to the other ranks of a named
+    mesh (``engine.mesh``) on the dispatcher thread: over the default
+    group where the mesh spans the world, else over a group of its ranks
+    (created once, by every rank of the world, as ``new_group`` requires).
+    While rank 0 has nothing to serve it still broadcasts every
+    ``heartbeat`` seconds, so the others' waits stay short of the group's
+    timeout."""
+
+    heartbeat = 10.0
+
+    def __init__(self, mesh, device):
+        import torch.distributed as dist
+        ranks = mesh.mesh.flatten().tolist()
+        self.src = ranks[0]
+        self.leader = dist.get_rank() == self.src
+        self.group = (None if len(ranks) == dist.get_world_size()
+                      else dist.new_group(ranks))
+        self.device = device if device.type == "cuda" else None
+
+    def share(self, obj):
+        """Rank 0's ``obj`` on every rank (picklable)."""
+        import torch.distributed as dist
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.src, group=self.group,
+                                   device=self.device)
+        return box[0]

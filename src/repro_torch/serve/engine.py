@@ -27,6 +27,16 @@ cycles, Table XI energy, and graph-scheduler makespan.  Without it the
 packed projections run on the packed-ternary matmul kernels (CUDA tensors)
 or their plain version (CPU tensors).
 
+Meshes (``Engine(..., mesh=)``): ``None`` serves on one device; a list
+of one device (:func:`repro_torch.launch.mesh.make_smoke_mesh`) is that
+device; a named :class:`~torch.distributed.device_mesh.DeviceMesh` (one
+process per rank, every rank driving the same requests) places plain
+params by the partition rules (DTensor leaves are taken as placed), each
+request's cache by :func:`repro_torch.models.sharded.cache_specs`, and runs
+every step through ``decode_step(..., mesh=)``; the logits are gathered
+whole (``full_tensor``) before sampling, so every rank samples the same
+tokens.
+
 Sampling: greedy is ``argmax`` (the first maximum, as ``jnp.argmax``);
 ``temperature > 0`` draws from a ``torch.Generator`` seeded from
 ``(ServeCfg.seed, sample index)``, so batched serving samples what
@@ -46,6 +56,7 @@ from ..apc.metrics import get_registry
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..models import model as M
+from ..models.common import is_named_mesh, partition_spec_tree, shard_tree
 
 
 @dataclass
@@ -56,6 +67,8 @@ class ServeCfg:
 
 
 def _clone_tree(tree: dict) -> dict:
+    """A copy of every tensor of ``tree`` (a DTensor keeps its placement:
+    each rank copies its own shard)."""
     return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
             for k, v in tree.items()}
 
@@ -100,8 +113,9 @@ class Request:
         self.n_new = n_new
         cross_len = cross_embeds.shape[1] if cross_embeds is not None else \
             (16 if engine.cfg.enc_layers else 0)
-        self.cache = M.init_cache(engine.cfg, b, engine.serve.max_len,
-                                  cross_len=cross_len, device=engine.device)
+        self.cache = engine._place_cache(M.init_cache(
+            engine.cfg, b, engine.serve.max_len, cross_len=cross_len,
+            device=engine.device))
         self.logits = None
         self.tok = None
         self.out: list[np.ndarray] = []
@@ -192,15 +206,23 @@ class Engine:
     :func:`~repro_torch.models.model.cast_params` tree on ``device``
     (``None`` = ``cuda:0``, which raises without a card; pass ``"cpu"``
     for the plain CPU path).  Steps run eagerly; with ``ap_ctx`` every
-    packed projection runs on that context's array pool."""
+    packed projection runs on that context's array pool.  ``mesh``: None,
+    a list of one device (then ``device`` defaults to it), or a named
+    ``DeviceMesh`` (then ``device`` is this rank's: the current CUDA
+    device on a "cuda" mesh, else the CPU), as the module says."""
 
     def __init__(self, cfg: ModelConfig, params, serve: ServeCfg,
-                 ap_ctx=None, slo=None, device=None):
+                 ap_ctx=None, slo=None, device=None, mesh=None):
         self.cfg = cfg
-        self.params = params
         self.serve = serve
         self.ap_ctx = ap_ctx
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
+        self.named = is_named_mesh(mesh)
+        if self.named:
+            params = shard_tree(params, partition_spec_tree(params,
+                                                            mesh=mesh), mesh)
+        self.params = params
         # optional live SLO monitor (serve.monitor.ServeMonitor) fed at the
         # end of every generate(); BatchServer carries its own
         if slo is not None:
@@ -220,9 +242,25 @@ class Engine:
             return torch.cuda.device(self.device)
         return nullcontext()
 
+    def _place_cache(self, cache: dict) -> dict:
+        """A fresh (zero) cache as DTensors placed by ``cache_specs`` on a
+        named mesh, each rank slicing its own copy (no communication);
+        as it is otherwise."""
+        if not self.named:
+            return cache
+        from ..models.sharded import cache_specs
+        return shard_tree(cache, cache_specs(self.cfg, cache, self.mesh),
+                          self.mesh, src_data_rank=None)
+
     def _step(self, params, cache, tokens, pos: int):
+        """One model step: (logits [B, V] whole, on this rank's device;
+        the cache, written in place)."""
         with torch.no_grad():
-            return M.decode_step(self.cfg, params, cache, tokens, pos)
+            if not self.named:
+                return M.decode_step(self.cfg, params, cache, tokens, pos)
+            logits, cache = M.decode_step(self.cfg, params, cache, tokens,
+                                          pos, mesh=self.mesh)
+            return logits.full_tensor(), cache
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -371,3 +409,28 @@ class Engine:
         probs = torch.softmax(logits.to(torch.float32)
                               / self.serve.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+
+def mesh_device(mesh, device) -> torch.device:
+    """The device an engine on ``mesh`` serves from (see :class:`Engine`);
+    raises where ``device`` contradicts the mesh."""
+    if mesh is None:
+        return resolve_device(device)
+    if isinstance(mesh, (list, tuple)):
+        if len(mesh) != 1:
+            raise ValueError(
+                f"a list mesh serves on one device, got {len(mesh)}; a "
+                f"mesh of several ranks is a named DeviceMesh")
+        dev = resolve_device(mesh[0])
+    elif is_named_mesh(mesh):
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if mesh.device_type == "cuda" else torch.device("cpu"))
+    else:
+        raise TypeError(f"mesh must be None, a list of one device or a "
+                        f"named DeviceMesh, got {type(mesh).__name__}")
+    want = None if device is None else resolve_device(device)
+    if want is not None and want.type == "cuda" and want.index is None:
+        want = torch.device("cuda", torch.cuda.current_device())
+    if want is not None and want != dev:
+        raise ValueError(f"device {device} is not the mesh's {dev}")
+    return dev

@@ -11,6 +11,14 @@ as ``tests/test_sharded.py::run_sub`` runs it.
 Tolerances: the sharded train step (fp32) against one rank within 1e-4
 (loss, grad_norm, every param after the step); MoE TP against EP, and both
 against the reference's outputs on its mesh, within 1e-4.
+
+Serving on a named mesh (the same 8-rank run): packed-MLP decode, the
+engine's greedy tokens and per-step logits (within 1e-4), the AP route
+(tokens, the quantized projection inputs and every ``ap_report`` field
+equal to one device's, with no tolerance) and ``BatchServer`` waves (equal
+to sequential serving).  The one-device references of the AP cases run
+first, each on a rank of its own at the same time, and are shared with
+``all_gather_object``.
 """
 import json
 import os
@@ -24,6 +32,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 TIMEOUT = 300
+EIGHT_TIMEOUT = 600     # the 8-rank run: training, decode and serving cases
 TOL = 1e-4
 
 _RUNNER = '''
@@ -56,7 +65,8 @@ if __name__ == "__main__":
 '''
 
 
-def run_ranks(tmp_path, world: int, body: str) -> dict:
+def run_ranks(tmp_path, world: int, body: str,
+              timeout: float = TIMEOUT) -> dict:
     """``body`` (defining ``body(rank, world) -> dict``) on ``world``
     gloo ranks; rank 0's dict."""
     script = tmp_path / "ranks.py"
@@ -66,7 +76,7 @@ def run_ranks(tmp_path, world: int, body: str) -> dict:
         store=str(tmp_path / "store"), out=str(out)))
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, str(script)], capture_output=True,
-                          text=True, env=env, timeout=TIMEOUT)
+                          text=True, env=env, timeout=timeout)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(out.read_text())
 
@@ -90,6 +100,28 @@ DECODE_CASES = (("qwen3-0.6b", (1, 2, 4), 4),   # positions over model
                 ("jamba-v0.1-52b", (2, 2, 2), 4),  # SSM state over model
                 ("seamless-m4t-medium", (2, 2, 2), 4),  # cross-attention
                 ("gemma3-27b", (1, 2, 4), 4))   # window ring caches
+# (mesh, overrides): packed serving weights (w1_packed ...), d_ff split over
+# "model" = 4, 2, 8; with d_ff 96 w1's d_ff splits over 4 but w2_packed's
+# 6 words do not, so the MLP runs whole on every model rank
+PACKED_DECODE_CASES = (((1, 2, 4), {}), ((2, 2, 2), {}), ((1, 1, 8), {}),
+                       ((1, 2, 4), {"d_ff": 96}))
+ENGINE_MESHES = ((1, 2, 4), (2, 2, 2))
+# (arch, mesh, batch): the AP route at 1 layer, data only and model split
+AP_CASES = (("qwen3-0.6b", (1, 8, 1), 8), ("qwen3-0.6b", (1, 2, 4), 8),
+            ("qwen3-moe-30b-a3b", (1, 8, 1), 8),
+            ("qwen3-moe-30b-a3b", (1, 2, 4), 2))
+# (prompt tokens, new tokens) of an AP request: every step of a smoke
+# model on the AP is thousands of plain program replays on the CPU
+AP_REQUEST = {"qwen3-0.6b": (1, 2), "qwen3-moe-30b-a3b": (1, 1)}
+# every ap_report field that does not read a clock
+AP_FIELDS = ("write_cycles", "compare_cycles", "sets", "resets",
+             "energy_write_j", "energy_compare_j", "energy_total_j",
+             "makespan_cycles", "sequential_cycles", "makespan_ns",
+             "sequential_ns", "n_graphs", "n_programs",
+             "pruned_write_cycles", "pruned_compare_cycles",
+             "emitted_passes", "pruned_passes", "resident_hits",
+             "resident_misses", "weight_sparsity", "power",
+             "n_arrays_total")
 
 _EIGHT = """
     def train_step_case():
@@ -244,7 +276,211 @@ _EIGHT = """
         return {"worst": float((got - want).abs().max()),
                 "scale": float(want.abs().max())}
 
+    def packed_params(cfg):
+        from repro_torch.models import model as M
+        from repro_torch.models.quant import quantize_model_params
+        return M.cast_params(cfg, quantize_model_params(
+            M.init_params(cfg, seed=0, device="cpu")))
+
+    def packed_decode_case(shape, overrides):
+        # six decode steps on packed MLPs (fp32) against one rank's
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.models import model as M
+        from repro_torch.models.common import partition_spec_tree, shard_tree
+        from repro_torch.models.sharded import cache_specs
+        cfg = smoke_cfg("qwen3-0.6b", overrides).with_(
+            compute_dtype="float32")
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("pod", "data", "model"))
+        params = packed_params(cfg)
+        placed_p = shard_tree(params, partition_spec_tree(params, mesh=mesh),
+                              mesh)
+        plain = M.init_cache(cfg, 4, 8, 0, torch.float32, "cpu")
+        placed = M.init_cache(cfg, 4, 8, 0, torch.float32, "cpu")
+        placed = shard_tree(placed, cache_specs(cfg, placed, mesh), mesh)
+        rng = np.random.default_rng(3)
+        worst = scale = 0.0
+        with torch.no_grad():
+            for pos in range(6):
+                tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4,)))
+                want, _ = M.decode_step(cfg, params, plain, tok, pos)
+                got, _ = M.decode_step(cfg, placed_p, placed, tok, pos,
+                                       mesh=mesh)
+                worst = max(worst, float((got.full_tensor() - want).abs()
+                                         .max()))
+                scale = max(scale, float(want.abs().max()))
+        return {"worst": worst, "scale": scale}
+
+    def serve_cfg(arch, n_layers=None):
+        from repro_torch.configs import get_smoke_config
+        cfg = get_smoke_config(arch).with_(compute_dtype="float32")
+        return cfg if n_layers is None else cfg.with_(n_layers=n_layers)
+
+    def engine_case(shape):
+        # the engine's greedy decoding on the mesh against one device:
+        # per-step logits and the tokens of generate()
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.serve import Engine, ServeCfg
+        cfg = serve_cfg("qwen3-0.6b")
+        params = packed_params(cfg)
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("pod", "data", "model"))
+        prompts = np.random.default_rng(4).integers(
+            1, cfg.vocab, (4, 5)).astype(np.int32)
+        one = Engine(cfg, params, ServeCfg(max_len=16), device="cpu")
+        many = Engine(cfg, params, ServeCfg(max_len=16), mesh=mesh)
+        r1, r8 = one.new_request(prompts, 4), many.new_request(prompts, 4)
+        worst = 0.0
+        while not r1.done:
+            r1.step()
+            r8.step()
+            worst = max(worst, float((r8.logits - r1.logits).abs().max()))
+        got = many.generate(prompts, 4)
+        lat = many.last_latency
+        lat_ok = abs(lat["prefill_ms"] + lat["decode_ms"] + lat["other_ms"]
+                     - lat["request_ms"]) < 1e-6 * max(1.0, lat["request_ms"])
+        return {"worst": worst, "tokens": one.generate(prompts, 4).tolist(),
+                "stepped": r8.tokens().tolist(), "got": got.tolist(),
+                "n_model_steps": lat["n_model_steps"], "latency_ok": lat_ok,
+                "cache_placed": str(r8.cache["stack"]["pos_0"]["kv"]["k"]
+                                    .placements)}
+
+    def ap_ctx(record=None):
+        # the AP serving context of tests/test_torch_serve.py; ``record``
+        # collects every quantized projection input (x_int, scale)
+        from repro_torch import apc
+        ctx = apc.APServeContext(apc.Runtime(apc.ArrayPool(
+            4, 64, 64, device="cpu")), x_levels=7)
+        if record is not None:
+            quantize = ctx.quantize
+
+            def recording(x):
+                xi, s = quantize(x)
+                record.append((xi.clone(), float(s)))
+                return xi, s
+            ctx.quantize = recording
+        return ctx
+
+    def ap_prompts(arch, batch):
+        s, n_new = AP_REQUEST[arch]
+        return np.random.default_rng(6).integers(
+            1, 256, (batch, s)).astype(np.int32), n_new
+
+    def ap_run(arch, batch, mesh=None):
+        # (tokens, quantized inputs, ap_report fields, histogram)
+        from repro_torch.serve import Engine, ServeCfg
+        cfg = serve_cfg(arch, n_layers=1)
+        rec = []
+        eng = Engine(cfg, packed_params(cfg), ServeCfg(max_len=8),
+                     ap_ctx=ap_ctx(rec), device=None if mesh else "cpu",
+                     mesh=mesh)
+        prompts, n_new = ap_prompts(arch, batch)
+        toks = eng.generate(prompts, n_new)
+        rep = eng.ap_report()
+        return {"tokens": toks.tolist(), "quantized": rec,
+                "report": {k: rep[k] for k in AP_FIELDS},
+                "hist": eng.ap_ctx.stats.mismatch_hist.tolist()}
+
+    def ap_case(arch, shape, batch, refs):
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("pod", "data", "model"))
+        got = ap_run(arch, batch, mesh)
+        want = refs[f"ap {arch} {batch}"]
+        pairs = list(zip(got["quantized"], want["quantized"]))
+        return {"tokens": [got["tokens"], want["tokens"]],
+                "n_quantized": [len(got["quantized"]),
+                                len(want["quantized"])],
+                "x_int_equal": all(torch.equal(a[0], b[0])
+                                   for a, b in pairs),
+                "scale_rel": max(abs(a[1] - b[1]) / b[1] for a, b in pairs),
+                "report": [got["report"], want["report"]],
+                "hist": [got["hist"], want["hist"]]}
+
+    WAVE_REQUESTS = ((np.array([[3, 9], [17, 5]], np.int32), 3),
+                     (np.array([[11, 2, 8], [4, 4, 30]], np.int32), 2))
+    AP_WAVE_REQUESTS = ((np.array([[3], [9]], np.int32), 2),
+                        (np.array([[17], [5]], np.int32), 2))
+
+    def sequential(cfg, requests, ap):
+        # one device, one request at a time: (tokens, ap_report fields)
+        from repro_torch.serve import Engine, ServeCfg
+        eng = Engine(cfg, packed_params(cfg), ServeCfg(max_len=8),
+                     ap_ctx=ap_ctx() if ap else None, device="cpu")
+        out = []
+        for p, n in requests:
+            toks = eng.generate(p, n)
+            rep = eng.ap_report() if ap else None
+            out.append((toks.tolist(), rep and {k: rep[k]
+                                                for k in AP_FIELDS}))
+        return out
+
+    def wave_case(ap, refs):
+        # two requests through a BatchServer on (1, 2, 4): one wave a step
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.serve import BatchServer, Engine, ServeCfg
+        cfg = serve_cfg("qwen3-0.6b", n_layers=1 if ap else None)
+        mesh = init_device_mesh("cpu", (1, 2, 4),
+                                mesh_dim_names=("pod", "data", "model"))
+        eng = Engine(cfg, packed_params(cfg), ServeCfg(max_len=8),
+                     ap_ctx=ap_ctx() if ap else None, mesh=mesh)
+        reqs = AP_WAVE_REQUESTS if ap else WAVE_REQUESTS
+        with BatchServer(eng) as srv:
+            handles = [srv.submit(p, n) for p, n in reqs]
+            got = []
+            for h in handles:
+                rep = h.ap_report(timeout=300)
+                got.append((h.result().tolist(),
+                            rep and {k: rep[k] for k in AP_FIELDS}))
+        return {"got": got, "want": refs["wave ap" if ap else "wave"],
+                "n_waves": srv.n_waves}
+
+    def launcher_case():
+        # launch.serve in the process group: the elastic (1, 8) mesh
+        from repro_torch.launch import serve as launch_serve
+        argv = ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+                "--new-tokens", "3"]
+        got = launch_serve.main(argv)
+        import torch.distributed as dist
+        group = dist.group.WORLD
+        return {"got": got.tolist(), "world": dist.get_world_size(group)}
+
+    def references(rank):
+        # the one-device references of the AP and wave cases, each on a
+        # rank of its own, then on every rank
+        import torch.distributed as dist
+        jobs = {1: lambda: {"ap qwen3-0.6b 8": ap_run("qwen3-0.6b", 8)},
+                2: lambda: {"ap qwen3-moe-30b-a3b 8":
+                            ap_run("qwen3-moe-30b-a3b", 8)},
+                3: lambda: {"ap qwen3-moe-30b-a3b 2":
+                            ap_run("qwen3-moe-30b-a3b", 2)},
+                4: lambda: {"wave ap": sequential(
+                    serve_cfg("qwen3-0.6b", 1), AP_WAVE_REQUESTS, True)},
+                5: lambda: {"wave": sequential(serve_cfg("qwen3-0.6b"),
+                                               WAVE_REQUESTS, False)}}
+        mine = jobs[rank]() if rank in jobs else {}
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        return {k: v for d in every for k, v in d.items()}
+
     def body(rank, world):
+        refs = references(rank)
+        out = {f"packed {shape} {over}": packed_decode_case(tuple(shape),
+                                                           over)
+               for shape, over in PACKED}
+        for shape in ENGINES:
+            out[f"engine {shape}"] = engine_case(tuple(shape))
+        for arch, shape, batch in APS:
+            out[f"ap {arch} {shape} {batch}"] = ap_case(arch, tuple(shape),
+                                                        batch, refs)
+        out["wave"] = wave_case(False, refs)
+        out["wave ap"] = wave_case(True, refs)
+        out["launcher"] = launcher_case()
+        for r, res in train_cases().items():
+            out[r] = res
+        return out
+
+    def train_cases():
         out = {"train_step": train_step_case(),
                "microbatches": microbatch_case(),
                "ternary_forward": ternary_forward_case()}
@@ -266,7 +502,11 @@ def eight_ranks(tmp_path_factory):
     return run_ranks(tmp_path_factory.mktemp("eight"), 8,
                      f"CASES = {GRAD_CASES!r}\nDECODES = {DECODE_CASES!r}\n"
                      f"MORE = {MORE_GRAD_CASES!r}\n"
-                     + textwrap.dedent(_EIGHT))
+                     f"PACKED = {PACKED_DECODE_CASES!r}\n"
+                     f"ENGINES = {ENGINE_MESHES!r}\nAPS = {AP_CASES!r}\n"
+                     f"AP_REQUEST = {AP_REQUEST!r}\n"
+                     f"AP_FIELDS = {AP_FIELDS!r}\n"
+                     + textwrap.dedent(_EIGHT), timeout=EIGHT_TIMEOUT)
 
 
 def test_sharded_train_step_matches_one_rank(eight_ranks):
@@ -329,6 +569,82 @@ def test_sharded_decode_matches_one_rank(eight_ranks, arch, shape, batch):
     against the same steps on one rank: logits within 1e-4."""
     res = eight_ranks[f"decode {arch} {tuple(shape)} {batch}"]
     assert res["worst"] < TOL, res
+
+
+@pytest.mark.parametrize("shape,overrides", PACKED_DECODE_CASES)
+def test_sharded_packed_decode_matches_one_rank(eight_ranks, shape,
+                                                overrides):
+    """Packed serving weights (``quantize_model_params``, fp32 compute),
+    d_ff split over "model" = 4, 2 and 8 (and at d_ff 96 split in w1 but
+    not in w2's packed words): six decode steps' logits within 1e-4 of one
+    rank's.  Each rank's down projection is a partial sum; without its sum
+    over "model" the logits are off by a tenth of their largest value."""
+    res = eight_ranks[f"packed {tuple(shape)} {overrides}"]
+    assert res["worst"] < TOL, res
+    assert res["scale"] > 0.1, res
+
+
+@pytest.mark.parametrize("shape", ENGINE_MESHES)
+def test_engine_on_mesh_matches_one_device(eight_ranks, shape):
+    """``Engine(mesh=)`` (packed qwen3-0.6b smoke, fp32, batch 4, prompt
+    5, 4 new tokens): every step's logits within 1e-4 of the one-device
+    engine's, the greedy tokens of ``generate`` and of the stepped request
+    equal to its, the cache placed as DTensors, ``last_latency``'s buckets
+    summing to the request."""
+    res = eight_ranks[f"engine {tuple(shape)}"]
+    assert res["worst"] < TOL, res
+    assert res["got"] == res["tokens"] == res["stepped"], res
+    assert res["n_model_steps"] == 5 + 4 - 1 and res["latency_ok"], res
+    assert "Shard" in res["cache_placed"], res
+
+
+@pytest.mark.parametrize("arch,shape,batch", AP_CASES)
+def test_ap_route_on_mesh_matches_one_device(eight_ranks, arch, shape,
+                                             batch):
+    """The AP route on a mesh (1 layer, ``ArrayPool(4, 64, 64)``,
+    ``x_levels=7``): every rank runs each projection on the whole input
+    and the whole weights, so the integers it hands the AP (x_int of every
+    projection) equal one device's, and with them the tokens, the
+    histogram and every ``ap_report`` field, with no tolerance: on (1, 8,
+    1) and on (1, 2, 4).  The x_int are asserted first, so a difference
+    shows where it arose.  Each activation scale (max|x| / x_levels, a
+    float beside the integers, which the counters never see) may differ
+    in its last bit: the mesh's products run on each rank's rows, and the
+    CPU's matmul rounds a product of fewer rows differently (in the
+    attention's sums over "model" too), so it is held to 1e-6."""
+    res = eight_ranks[f"ap {arch} {tuple(shape)} {batch}"]
+    assert res["n_quantized"][0] == res["n_quantized"][1] > 0, res
+    assert res["x_int_equal"], res
+    assert res["scale_rel"] < 1e-6, res
+    assert res["tokens"][0] == res["tokens"][1], res
+    assert res["hist"][0] == res["hist"][1], res
+    got, want = res["report"]
+    for key in want:
+        assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("route", ["wave", "wave ap"])
+def test_batch_server_on_mesh_matches_sequential(eight_ranks, route):
+    """A ``BatchServer`` on (1, 2, 4), two requests in one wave a step
+    (the float route on packed weights, 4 steps each, or a merged AP wave
+    at 1 layer, 2 steps each):
+    tokens, and on the AP every ``ap_report`` field, equal to sequential
+    serving on one device."""
+    res = eight_ranks[route]
+    assert res["got"] == res["want"], res
+    assert res["n_waves"] == (4 if route == "wave" else 2), res
+
+
+def test_launch_serve_in_process_group(eight_ranks):
+    """``launch.serve`` inside the 8-rank group serves on the elastic
+    (data, model) = (1, 8) mesh and returns the one-device launcher's
+    tokens (``tests/test_torch_serve.py`` runs that one)."""
+    from repro_torch.launch import serve as launch_serve
+    res = eight_ranks["launcher"]
+    want = launch_serve.main(["--arch", "qwen3-0.6b", "--smoke",
+                              "--device", "cpu", "--new-tokens", "3"])
+    assert res["world"] == 8
+    assert res["got"] == want.tolist()
 
 
 _REF_MOE = '''
