@@ -318,6 +318,11 @@ MESH_MOE_TOKENS = (2, 512)
 # BatchServer wave of two requests (batch, new tokens each)
 MESH_SERVE_BATCHES = (4, 16)
 MESH_WAVE = (2, 8)
+# and a merged AP wave of this many one-token requests (one new token: one
+# wave) on the mesh, its threads taking turns between graph calls (the
+# order a mesh needs) and not, in turns ordered, unordered, unordered,
+# ordered
+MESH_AP_WAVE = 2
 # the examples whose every printed number must equal the CPU run's, and
 # the cut counts of the other two (their full counts: 24 tokens, 200 steps)
 EXAMPLES_SAME = ("quickstart", "ap_arithmetic", "ternary_inference")
@@ -2727,7 +2732,8 @@ def phase_mesh_serve_path(dev, card: str, log) -> dict:
         mesh = init_device_mesh("cuda", (1, 1),
                                 mesh_dim_names=("data", "model"))
         res = {"mesh": str(mesh), "card": card}
-        res["engine"], res["wave"] = mesh_serving(mesh, dev, card, log)
+        res["engine"], res["wave"], res["ap_wave"] = mesh_serving(
+            mesh, dev, card, log)
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
@@ -2735,10 +2741,11 @@ def phase_mesh_serve_path(dev, card: str, log) -> dict:
     return res
 
 
-def mesh_serving(mesh, dev, card: str, log) -> tuple[dict, dict]:
+def mesh_serving(mesh, dev, card: str, log) -> tuple[dict, dict, dict]:
     """qwen3-0.6b (packed MLPs, bf16, seed 0): ``Engine(mesh=)`` against
     the meshless engine at each of MESH_SERVE_BATCHES, in turns (plain,
-    mesh, mesh, plain); then a BatchServer wave on the mesh."""
+    mesh, mesh, plain); then a BatchServer wave on the mesh, and a merged
+    AP wave on it (:func:`mesh_ap_wave_order`)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.ternary_matmul import kernel as tk
@@ -2821,7 +2828,78 @@ def mesh_serving(mesh, dev, card: str, log) -> tuple[dict, dict]:
     check(srv.n_waves == s_prompt + n_wave - 1,
           f"BatchServer on the mesh: {srv.n_waves} waves, expected one a "
           f"step")
-    return out, wave
+    del eng
+    return out, wave, mesh_ap_wave_order(mesh, cfg, params, dev, card, log)
+
+
+def mesh_ap_wave_order(mesh, cfg, params, dev, card: str, log) -> dict:
+    """MESH_AP_WAVE one-token requests, one new token each, through a
+    BatchServer on the mesh with every MLP projection on the AP (phase
+    3e's pool and x_levels): one merged wave.  Its worker threads take
+    turns between graph calls, as a mesh needs
+    (``WaveMerger(ordered=True)``), or run freely (``ordered=False``, safe
+    on one rank only), in turns ordered, unordered, unordered, ordered.
+    The wave's host ms for each; tokens and APStats equal across the
+    four."""
+    import torch
+    from repro_torch import apc
+    from repro_torch.serve import BatchServer, Engine, ServeCfg, batcher
+
+    class Unordered(batcher.WaveMerger):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **dict(kw, ordered=False))
+
+    ctx = apc.APServeContext(apc.Runtime(apc.ArrayPool(
+        *AP_SERVE_POOL, device=dev)), x_levels=AP_SERVE_X_LEVELS)
+    eng = Engine(cfg, params, ServeCfg(max_len=AP_SERVE_MAX_LEN),
+                 ap_ctx=ctx, mesh=mesh)
+    prompts = [np.array([[t]], np.int32) for t in
+               np.random.default_rng(SEED + 2).integers(
+                   1, cfg.vocab, MESH_AP_WAVE)]
+    runs = {"ordered": [], "unordered": []}
+    first = None
+    for mode in ("ordered", "unordered", "unordered", "ordered"):
+        merger = batcher.WaveMerger
+        if mode == "unordered":
+            batcher.WaveMerger = Unordered
+        waves: list = []
+        try:
+            with BatchServer(eng) as srv:
+                orig = srv._run_wave
+
+                def run_wave(reg, orig=orig, srv=srv, waves=waves):
+                    width = sum(not a.request.done for a in srv._active)
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    orig(reg)
+                    torch.cuda.synchronize(dev)
+                    waves.append((width, 1e3 * (time.perf_counter() - t0)))
+
+                srv._run_wave = run_wave
+                handles = [srv.submit(p, 1) for p in prompts]
+                got = [(h.result(timeout=600).tolist(),
+                        {k: h.ap_report()[k] for k in AP_PARITY})
+                       for h in handles]
+        finally:
+            batcher.WaveMerger = merger
+        check([w for w, _ in waves] == [MESH_AP_WAVE],
+              f"AP wave on the mesh ({mode}): wave widths "
+              f"{[w for w, _ in waves]}, expected [{MESH_AP_WAVE}]")
+        first = got if first is None else first
+        check(got == first, f"AP wave on the mesh ({mode}): tokens or "
+                            f"APStats differ from the first run's")
+        runs[mode].append(waves[0][1])
+    out = {"requests": MESH_AP_WAVE, "wave_host_ms": runs,
+           "tokens": [t for t, _ in first],
+           "n_programs": [r["n_programs"] for _, r in first]}
+    for mode, ms in runs.items():
+        log(f"  merged AP wave on the mesh, {MESH_AP_WAVE} requests, "
+            f"{mode}: {', '.join('%.1f' % x for x in ms)} ms host clock "
+            f"(card {card})")
+    log(f"  merged AP wave: tokens {out['tokens']} and APStats equal in "
+        f"all four runs; ordered / unordered means "
+        f"{statistics.mean(runs['ordered']) / statistics.mean(runs['unordered']):.3f}")
+    return out
 
 
 def run_example(name: str, device: str, *argv: str) -> tuple[float, str]:

@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from ..device import resolve_device
+
 MAX_TP = 16
 
 
@@ -53,9 +55,10 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _named(shape, axes)
 
 
-def make_smoke_mesh(device="cpu") -> list:
-    """One replica: the CPU (CPU tests), or ``device``."""
-    return [device]
+def make_smoke_mesh(device=None) -> list:
+    """One replica on ``device`` (default ``cuda:0``, raising without a
+    card; the CPU tests pass ``"cpu"``)."""
+    return [resolve_device(device)]
 
 
 def make_elastic_mesh(devices=None):

@@ -786,29 +786,27 @@ class BatchServer:
 
 
 class _MeshOrder:
-    """Rank 0's serving decisions, broadcast to the other ranks of a named
-    mesh (``engine.mesh``) on the dispatcher thread: over the default
-    group where the mesh spans the world, else over a group of its ranks
-    (created once, by every rank of the world, as ``new_group`` requires).
-    While rank 0 has nothing to serve it still broadcasts every
-    ``heartbeat`` seconds, so the others' waits stay short of the group's
-    timeout."""
+    """Rank 0's serving decisions, broadcast over the default group to the
+    other ranks of a named mesh (``engine.mesh``, which must span the
+    world) on the dispatcher thread.  While rank 0 has nothing to serve it
+    still broadcasts every ``heartbeat`` seconds, so the others' waits stay
+    short of the group's timeout."""
 
     heartbeat = 10.0
 
     def __init__(self, mesh, device):
         import torch.distributed as dist
-        ranks = mesh.mesh.flatten().tolist()
-        self.src = ranks[0]
-        self.leader = dist.get_rank() == self.src
-        self.group = (None if len(ranks) == dist.get_world_size()
-                      else dist.new_group(ranks))
+        if mesh.mesh.numel() != dist.get_world_size():
+            raise ValueError(
+                f"a BatchServer serves on a mesh of every rank: the mesh "
+                f"has {mesh.mesh.numel()}, the world "
+                f"{dist.get_world_size()}")
+        self.leader = dist.get_rank() == 0
         self.device = device if device.type == "cuda" else None
 
     def share(self, obj):
         """Rank 0's ``obj`` on every rank (picklable)."""
         import torch.distributed as dist
         box = [obj]
-        dist.broadcast_object_list(box, src=self.src, group=self.group,
-                                   device=self.device)
+        dist.broadcast_object_list(box, src=0, device=self.device)
         return box[0]

@@ -19,6 +19,7 @@ from repro_torch.kernels.tap_pass import kernel, ops
 from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import train as launch_train
 from repro_torch.models import model
+from repro_torch.serve import Engine, ServeCfg
 from repro_torch.train import checkpoint, train_step
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -85,6 +86,9 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                  get_smoke_config("qwen3-0.6b")),
              lambda: checkpoint.restore(str(tmp_path), 1),
              lambda: launch_mesh.make_elastic_mesh(),
+             lambda: launch_mesh.make_smoke_mesh(),
+             lambda: Engine(get_smoke_config("qwen3-0.6b"), {}, ServeCfg(),
+                            mesh=launch_mesh.make_smoke_mesh()),
              lambda: launch_train.main(["--arch", "qwen3-0.6b", "--smoke",
                                         "--steps", "1", "--ckpt-dir",
                                         str(tmp_path)])]

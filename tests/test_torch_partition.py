@@ -188,7 +188,7 @@ def test_meshes_named_and_listed():
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as launch_mesh
     assert launch_mesh.data_axes(["cpu", "cpu"]) == ("data",)
-    assert launch_mesh.make_smoke_mesh() == ["cpu"]
+    assert [str(d) for d in launch_mesh.make_smoke_mesh("cpu")] == ["cpu"]
     try:
         with pytest.raises(RuntimeError, match="fake"):
             launch_mesh.make_production_mesh()

@@ -311,7 +311,7 @@ def test_compressed_dp_step_on_four_cpu_replicas():
     cfg = configs.get_smoke_config("qwen3-0.6b").with_(
         compute_dtype="float32")
     opt_cfg = opt.AdamWCfg(lr=1e-3, warmup_steps=1, total_steps=10)
-    mesh = make_smoke_mesh() * 4
+    mesh = make_smoke_mesh("cpu") * 4
     src = TokenSource(DataCfg(vocab=cfg.vocab, global_batch=4, seq_len=16))
     state = ts.init_train_state(cfg, seed=4, device="cpu")
     step = comp.make_compressed_dp_step(cfg, mesh, opt_cfg)
