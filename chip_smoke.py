@@ -321,8 +321,10 @@ MESH_WAVE = (2, 8)
 # and a merged AP wave of this many one-token requests (one new token: one
 # wave) on the mesh, its threads taking turns between graph calls (the
 # order a mesh needs) and not, in turns ordered, unordered, unordered,
-# ordered
+# ordered; at full width and a quarter of the depth (the layers repeat,
+# and so do the turns), which keeps phase 3h near 90 s
 MESH_AP_WAVE = 2
+MESH_AP_WAVE_LAYERS = 7
 # the examples whose every printed number must equal the CPU run's, and
 # the cut counts of the other two (their full counts: 24 tokens, 200 steps)
 EXAMPLES_SAME = ("quickstart", "ap_arithmetic", "ternary_inference")
@@ -2829,13 +2831,15 @@ def mesh_serving(mesh, dev, card: str, log) -> tuple[dict, dict, dict]:
           f"BatchServer on the mesh: {srv.n_waves} waves, expected one a "
           f"step")
     del eng
-    return out, wave, mesh_ap_wave_order(mesh, cfg, params, dev, card, log)
+    del params
+    return out, wave, mesh_ap_wave_order(mesh, cfg, dev, card, log)
 
 
-def mesh_ap_wave_order(mesh, cfg, params, dev, card: str, log) -> dict:
+def mesh_ap_wave_order(mesh, cfg, dev, card: str, log) -> dict:
     """MESH_AP_WAVE one-token requests, one new token each, through a
     BatchServer on the mesh with every MLP projection on the AP (phase
-    3e's pool and x_levels): one merged wave.  Its worker threads take
+    3e's pool and x_levels; ``cfg`` at MESH_AP_WAVE_LAYERS layers, packed
+    weights from SEED): one merged wave.  Its worker threads take
     turns between graph calls, as a mesh needs
     (``WaveMerger(ordered=True)``), or run freely (``ordered=False``, safe
     on one rank only), in turns ordered, unordered, unordered, ordered.
@@ -2845,10 +2849,16 @@ def mesh_ap_wave_order(mesh, cfg, params, dev, card: str, log) -> dict:
     from repro_torch import apc
     from repro_torch.serve import BatchServer, Engine, ServeCfg, batcher
 
+    from repro_torch.models import model
+    from repro_torch.models.quant import quantize_model_params
+
     class Unordered(batcher.WaveMerger):
         def __init__(self, *a, **kw):
             super().__init__(*a, **dict(kw, ordered=False))
 
+    cfg = cfg.with_(n_layers=MESH_AP_WAVE_LAYERS)
+    params = model.cast_params(cfg, quantize_model_params(
+        model.init_params(cfg, seed=SEED, device=dev)))
     ctx = apc.APServeContext(apc.Runtime(apc.ArrayPool(
         *AP_SERVE_POOL, device=dev)), x_levels=AP_SERVE_X_LEVELS)
     eng = Engine(cfg, params, ServeCfg(max_len=AP_SERVE_MAX_LEN),
@@ -2894,7 +2904,7 @@ def mesh_ap_wave_order(mesh, cfg, params, dev, card: str, log) -> dict:
            "n_programs": [r["n_programs"] for _, r in first]}
     for mode, ms in runs.items():
         log(f"  merged AP wave on the mesh, {MESH_AP_WAVE} requests, "
-            f"{mode}: {', '.join('%.1f' % x for x in ms)} ms host clock "
+            f"{cfg.n_layers} layers, {mode}: {', '.join('%.1f' % x for x in ms)} ms host clock "
             f"(card {card})")
     log(f"  merged AP wave: tokens {out['tokens']} and APStats equal in "
         f"all four runs; ordered / unordered means "
