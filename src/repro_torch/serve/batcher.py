@@ -43,8 +43,10 @@ Moving parts:
 The lockstep design assumes the model's AP graph cadence is config-static
 (every request's step issues the same number of ``ctx.run_graph`` calls —
 true for the packed-ternary MLP stack, where each layer runs exactly two
-graphs).  A request that falls out of cadence breaks the barrier, which
-surfaces as :class:`WaveAborted` rather than a hang.
+graphs).  A request that falls out of cadence (its step ends while a peer
+waits at a graph call, or makes a graph call after a peer's step ended)
+breaks the barrier, which surfaces as :class:`WaveAborted` rather than a
+hang.
 
 Threads: each request of a merged wave steps in a worker thread, which
 starts with empty contextvars and its own grad mode and current device, so
@@ -58,14 +60,42 @@ each with its own server, every rank submitting the same requests in the
 same order) every step issues collectives, which the ranks' process
 groups match by the order they are issued in.  So the ranks must step the
 same requests in the same order, and do: rank 0 alone decides admission
-and broadcasts its decisions and each wave's membership over the mesh's
-ranks (:class:`_MeshOrder`, on the dispatcher thread; the other ranks
-follow, and fail rather than step a different wave).  A merged AP wave's
-worker threads take turns (:class:`WaveMerger` with ``ordered``): slot 0
-runs its step up to its next graph call, then slot 1, and so on, and again
-after each merged run, so each rank issues its collectives in slot order.
-Those stretches of the step are host work under one interpreter lock, so
-the turns cost little; the merged graph still runs once for the wave.
+and broadcasts its decisions and each wave's membership
+(:class:`_MeshOrder`).  Two threads of the server issue collectives on a
+rank, the dispatcher and, during a merged AP wave, its workers:
+
+- the dispatcher thread issues :class:`_MeshOrder`'s, on a process group
+  of the server's own (a ``new_group`` over the world, made on every rank
+  when the server starts): rank 0's decisions, its heartbeat while idle,
+  and after each wave the count of ranks on which each step failed.  No
+  other thread uses that group, so the heartbeat cannot fall between two
+  collectives of the model or of the caller;
+- the steps of a float wave, and the solo replays after a wave abort,
+  run on the dispatcher thread too, one request after another;
+- a merged AP wave's worker threads take turns (:class:`WaveMerger` with
+  ``ordered``): slot 0 runs its step up to its next graph call, then slot
+  1, and so on, and again after each merged run, so each rank issues the
+  model's collectives (on the mesh's groups) in slot order, one thread at
+  a time, while the dispatcher waits for them.
+
+No thread or group of the server outlives it: the dispatcher returns on
+every rank after rank 0 has shared its last decision, the wave's threads
+are joined before the next wave, and :meth:`BatchServer.close` frees the
+server's group.  No wave reads a clock (on a mesh, a wave abort decided
+by one rank's clock would replay steps solo there and leave the other
+ranks' collectives unmatched): the turns and the barrier wait until the
+peers come or one of them breaks the wave (:meth:`WaveMerger.finish`),
+and the process group's own timeout ends a rank that never comes.  A
+step that fails on some ranks only, after its last collective (in
+sampling, say), fails on every rank with no solo replay: the peers of a
+merged wave still run their steps to the end, and the ranks then count
+each step's failures.  A step that fails on some ranks before a
+collective it would have issued leaves the other ranks waiting in that
+collective until the process group's timeout.  The turns are not free: phase
+3h of ``chip_smoke.py`` measured an ordered merged AP wave at 1.34-1.51x
+the host time of an unordered one on the card, since the slots' host
+work (their APLinear builds above all) runs one slot at a time; the
+merged graph still runs once for the wave.
 """
 from __future__ import annotations
 
@@ -90,11 +120,16 @@ from .queue import ClosedQueue, IterableQueue
 
 __all__ = ["AdmissionCfg", "AdmissionRejected", "BatchServer",
            "RequestHandle", "SLOCfg", "ServeMonitor", "WaveAborted",
-           "WaveMerger"]
+           "WaveDiverged", "WaveMerger"]
 
 
 class WaveAborted(RuntimeError):
     """A wave's rendezvous broke (a peer errored or fell out of cadence)."""
+
+
+class WaveDiverged(RuntimeError):
+    """On a named mesh, a request's step failed on some ranks only: it
+    fails on every rank, with no solo replay."""
 
 
 class AdmissionRejected(RuntimeError):
@@ -116,15 +151,16 @@ class WaveMerger:
     the standalone occupancy report of its OWN graph (identical numbers
     to sequential serving), and defers its slice of the traced counters.
     The barrier is reusable, so the same merger serves every graph call
-    of one wave.
+    of one wave.  No wait has a clock: a slot whose step ends while a peer
+    waits at a graph call (:meth:`finish`), or that makes a graph call
+    after a peer's step ended, breaks the rendezvous.
     """
 
-    def __init__(self, runtime, n_slots: int, *, timeout: float = 120.0,
-                 track_power: bool = False, ordered: bool = False):
+    def __init__(self, runtime, n_slots: int, *, track_power: bool = False,
+                 ordered: bool = False):
         self.runtime = runtime
         self.n_slots = n_slots
-        self._timeout = timeout
-        self._barrier = threading.Barrier(n_slots, timeout=timeout)
+        self._barrier = threading.Barrier(n_slots)
         # ordered: the slots run their stretches between graph calls one at
         # a time, in slot order (the turn passes at each graph call and at
         # the end of a step; the leader hands it back to slot 0 after each
@@ -133,6 +169,8 @@ class WaveMerger:
         self._turn = 0
         self._cv = threading.Condition()
         self._aborted = False
+        self._arrived = 0          # slots waiting at this graph call
+        self._finished = 0         # slots whose step has ended
         self._tls = threading.local()
         self._graphs: list[ProgramGraph | None] = [None] * n_slots
         self._views: list[MergedGraphView | None] = [None] * n_slots
@@ -170,9 +208,8 @@ class WaveMerger:
         if not self._ordered:
             return
         with self._cv:
-            if not self._cv.wait_for(
-                    lambda: self._turn == slot or self._aborted,
-                    timeout=self._timeout) or self._turn != slot:
+            self._cv.wait_for(lambda: self._turn == slot or self._aborted)
+            if self._turn != slot:
                 raise WaveAborted(f"slot {slot}'s turn never came")
 
     def leave(self, slot: int) -> None:
@@ -184,15 +221,35 @@ class WaveMerger:
                 self._turn = slot + 1
                 self._cv.notify_all()
 
+    def finish(self, slot: int) -> None:
+        """``slot``'s step has ended: pass its turn on, and break the
+        rendezvous if a peer waits at a graph call that this slot will not
+        make (out of cadence)."""
+        with self._cv:
+            self._finished += 1
+            stranded = self._arrived > 0
+        if stranded:
+            self.abort()
+        self.leave(slot)
+
     def run_graph(self, ctx, graph: ProgramGraph, sink: APSink):
         slot = self._tls.slot
         self._graphs[slot] = graph
         self.profiles[slot].append(
             [(n.compiled, n.rows, n.deps, n.upload_cycles)
              for n in graph.nodes])
+        with self._cv:
+            late = self._finished > 0         # a peer's step has ended
+            self._arrived += not late
+        if late:
+            self.abort()
+            raise WaveAborted(f"slot {slot} made a graph call after a "
+                              f"peer's step ended (out of cadence)")
         self.leave(slot)
         try:
             if self._barrier.wait() == 0:        # all deposited; 0 leads
+                with self._cv:
+                    self._arrived = 0
                 try:
                     self._merge_and_run(ctx)
                 except BaseException as e:       # peers must not hang
@@ -388,15 +445,18 @@ class BatchServer:
     *scheduling* (queue, admission by ``max_inflight``, lockstep waves)
     but each step runs the ordinary float path (the packed-matmul
     kernels) with nothing to merge.
+
+    ``wave_timeout`` is accepted as the reference's server takes it and is
+    read nowhere: no wave reads a clock (the module's docstring).
     """
 
     def __init__(self, engine: Engine, *,
                  admission: AdmissionCfg | None = None,
-                 queue_maxsize: int = 0, wave_timeout: float = 120.0,
+                 queue_maxsize: int = 0, wave_timeout: float | None = None,
                  slo: SLOCfg | None = None):
+        del wave_timeout         # the reference's; no wave reads a clock
         self.engine = engine
         self.admission = admission or AdmissionCfg()
-        self.wave_timeout = wave_timeout
         self.queue = IterableQueue(queue_maxsize)
         self._pending: deque[RequestHandle] = deque()
         self._active: list[_Active] = []
@@ -448,7 +508,8 @@ class BatchServer:
         ``wait=True`` joins the dispatcher and then FAILS (never strands)
         any handle that raced into the queue after the dispatcher exited,
         so ``result()`` on every submitted handle eventually returns or
-        raises."""
+        raises; on a named mesh it then frees the server's process group
+        (every rank closes its server)."""
         if not self._closed:
             self._closed = True
             try:
@@ -458,6 +519,8 @@ class BatchServer:
         if wait:
             self._dispatcher.join()
             self._fail_stranded(get_registry())
+            if self._order is not None:
+                self._order.close()
 
     def __enter__(self) -> "BatchServer":
         return self
@@ -652,16 +715,17 @@ class BatchServer:
             if ctx is None:
                 for act in stepping:
                     self._step_float(act)
+                self._agree(stepping)
             else:
                 # a lone request still goes through the merger (Barrier(1)
                 # passes immediately): one code path, and the wave records
                 # the step profile the admission oracle prices with
                 merger = WaveMerger(ctx.runtime, len(stepping),
-                                    timeout=self.wave_timeout,
                                     track_power=self._track_power,
                                     ordered=self._order is not None)
-                # pre-wave checkpoints: if ANY slot errors, the barrier
-                # breaks and every sibling sees WaveAborted mid-step —
+                # pre-wave checkpoints: if a slot errors before a graph
+                # call its siblings wait at, the barrier breaks and they
+                # see WaveAborted mid-step —
                 # these snapshots are what lets them roll back and re-run
                 # solo instead of dying with the poison request
                 ckpts = [(act.request.checkpoint(),
@@ -679,6 +743,7 @@ class BatchServer:
                     if act.error is None and merger.profiles[slot]:
                         act.profile = merger.profiles[slot]
                         self._last_profile = act.profile
+                self._agree(stepping)
                 self._recover_errored(reg, ctx, stepping, ckpts)
         wave_ms = 1e3 * (time.perf_counter() - t0)
         reg.histogram("serve.wave_ms").observe(wave_ms)
@@ -691,6 +756,20 @@ class BatchServer:
                     act.request.pos > act.request.s_prompt:
                 reg.histogram("serve.decode_step_ms").observe(wave_ms)
         self.n_waves += 1
+
+    def _agree(self, stepping) -> None:
+        """On a named mesh: a step that failed on some ranks only fails on
+        every rank (:class:`WaveDiverged`, never replayed solo)."""
+        if self._order is None:
+            return
+        counts = self._order.count([a.error is not None for a in stepping])
+        for act, n in zip(stepping, counts):
+            if 0 < n < self._order.world:
+                err = WaveDiverged(
+                    f"request {act.handle.seq}'s step failed on {n} of "
+                    f"{self._order.world} ranks")
+                err.__cause__ = act.error
+                act.error = err
 
     def _step_float(self, act: _Active) -> None:
         try:
@@ -712,7 +791,8 @@ class BatchServer:
         handle; siblings and subsequent waves continue, on the (possibly
         degraded) bank."""
         errored = [(act, ck) for act, ck in zip(stepping, ckpts)
-                   if act.error is not None]
+                   if act.error is not None
+                   and not isinstance(act.error, WaveDiverged)]
         if not errored:
             return
         reg.counter("serve.wave_aborts").inc()
@@ -751,10 +831,13 @@ class BatchServer:
                     ap_request_scope(act.sink, merger):
                 act.request.step()
         except BaseException as e:
+            # the peers go on: ``finish`` breaks the wave where one waits
+            # for a graph call this slot will not make, and one past its
+            # last graph call runs its step (on a mesh, its collectives)
+            # to the end
             act.error = e
-            merger.abort()                  # never strand the peers
         finally:
-            merger.leave(slot)
+            merger.finish(slot)
 
     def _retire(self, reg) -> None:
         still = []
@@ -786,27 +869,54 @@ class BatchServer:
 
 
 class _MeshOrder:
-    """Rank 0's serving decisions, broadcast over the default group to the
-    other ranks of a named mesh (``engine.mesh``, which must span the
-    world) on the dispatcher thread.  While rank 0 has nothing to serve it
-    still broadcasts every ``heartbeat`` seconds, so the others' waits stay
-    short of the group's timeout."""
+    """The collectives a server on a named mesh (``engine.mesh``, which
+    must span the world) issues besides the model's, all on the
+    dispatcher thread and on a process group of their own (``group``, a
+    ``new_group`` over the world that every rank makes when its server
+    starts, and that no other code uses): rank 0's serving decisions,
+    broadcast to the other ranks (:meth:`share`), and after each wave the
+    count of ranks on which each step failed (:meth:`count`).  While rank
+    0 has nothing to serve it still broadcasts every ``heartbeat``
+    seconds, so the others' waits stay short of the group's timeout.
+    :meth:`close` frees the group."""
 
     heartbeat = 10.0
 
     def __init__(self, mesh, device):
         import torch.distributed as dist
-        if mesh.mesh.numel() != dist.get_world_size():
+        self.world = dist.get_world_size()
+        if mesh.mesh.numel() != self.world:
             raise ValueError(
                 f"a BatchServer serves on a mesh of every rank: the mesh "
-                f"has {mesh.mesh.numel()}, the world "
-                f"{dist.get_world_size()}")
+                f"has {mesh.mesh.numel()}, the world {self.world}")
         self.leader = dist.get_rank() == 0
         self.device = device if device.type == "cuda" else None
+        self.group = dist.new_group(list(range(self.world)))
 
     def share(self, obj):
         """Rank 0's ``obj`` on every rank (picklable)."""
         import torch.distributed as dist
         box = [obj]
-        dist.broadcast_object_list(box, src=0, device=self.device)
+        dist.broadcast_object_list(box, src=0, group=self.group,
+                                   device=self.device)
         return box[0]
+
+    def count(self, flags: list[bool]) -> list[int]:
+        """For each flag, how many ranks raised it."""
+        import torch
+        import torch.distributed as dist
+        t = torch.tensor([int(f) for f in flags], dtype=torch.int32,
+                         device=self.device or "cpu")
+        dist.all_reduce(t, group=self.group)
+        return t.tolist()
+
+    def close(self) -> None:
+        """Free ``group`` once this rank's dispatcher has returned: a last
+        count first, so that no rank frees it while another still uses
+        it."""
+        import torch.distributed as dist
+        if self.group is None:
+            return
+        self.count([False])
+        dist.destroy_process_group(self.group)
+        self.group = None

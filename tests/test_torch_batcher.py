@@ -14,6 +14,7 @@ step is not idempotent).
 """
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ from repro_torch.apc.metrics import get_registry
 from repro_torch.serve import (AdmissionCfg, AdmissionRejected, BatchServer,
                                ClosedQueue, IterableQueue, RequestHandle,
                                ServeMonitor, SLOCfg, WaveAborted,
-                               wave_cost_cycles)
+                               WaveMerger, wave_cost_cycles)
 from tests.test_torch_serve import _cfgs, port_engine, tiny_params
 
 # the fields of a request's AP report that batched serving must reproduce
@@ -42,6 +43,17 @@ _PARAMS = tiny_params(_CFG)
 
 def tiny_engine(**pool):
     return port_engine(_CFG, _PARAMS, **pool)
+
+
+@pytest.fixture(autouse=True)
+def no_retired_arrays_from_other_files():
+    """The monitor reads ``faults.retired_arrays`` as an absolute gauge of
+    the process-global registry, which a faulty pool of another file
+    (``tests/test_torch_faults.py``, ``tests/test_torch_pool.py``) leaves
+    set when pytest-xdist runs that file first in the same worker; each
+    test here starts with no array retired, and its own pools set the
+    gauge as they retire."""
+    get_registry().gauge("faults.retired_arrays").set(0)
 
 
 @pytest.fixture(scope="module")
@@ -457,6 +469,37 @@ def test_serve_monitor_slo_breaches():
                               "power": 1}
     assert st["state"] == "unhealthy"
     assert "serve_" in mon.to_prometheus()
+
+
+@pytest.mark.parametrize("first", ["step ends", "graph call"])
+def test_wave_merger_out_of_cadence_breaks_without_a_clock(first):
+    """A wave reads no clock: slot 0's step ends while slot 1 waits at a
+    graph call, or slot 1 makes a graph call after slot 0's step ended;
+    either way slot 1 sees ``WaveAborted`` at once instead of waiting for
+    a partner that will not come."""
+    merger = WaveMerger(None, 2)
+    errors = []
+
+    def slot_1():
+        merger.bind(1)
+        try:
+            merger.run_graph(None, types.SimpleNamespace(nodes=[]), None)
+        except WaveAborted as e:
+            errors.append(e)
+
+    t = threading.Thread(target=slot_1, daemon=True)
+    if first == "step ends":
+        merger.finish(0)
+        t.start()
+    else:
+        t.start()
+        deadline = time.monotonic() + 30
+        while merger._barrier.n_waiting < 1 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        merger.finish(0)
+    t.join(timeout=30)
+    assert not t.is_alive()
+    assert len(errors) == 1
 
 
 def test_wave_aborted_is_a_runtime_error():

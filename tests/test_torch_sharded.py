@@ -7,8 +7,22 @@ joining through a ``FileStore`` in ``tmp_path`` (no fixed port, so tests
 in parallel workers never collide); rank 0 writes its readings as JSON.
 The reference's MoE runs in its own subprocess on 8 placeholder devices,
 as ``tests/test_sharded.py::run_sub`` runs it, and so does the reference's
-serving ``Engine`` on its (1, 2, 4) mesh, beside the 8-rank run, whose last
-case holds the port's engine on (1, 2, 4) against it.
+serving ``Engine`` on its (1, 2, 4) mesh, just before the 8-rank serving
+run, whose last case holds the port's engine on (1, 2, 4) against it.
+
+The 8-rank cases run in two runs of their own, one after the other:
+training (the train step, grads, decode) and serving, so that a failure
+in one family leaves the other's readings standing; a failure of the
+reference's engine fails its one case.  The reference's engine runs
+before the ranks, not beside them, so that its 8 device threads have
+the host to themselves (beside them, pinned to two cores, it did not
+end in 600 s; alone it takes 50-90 s).  Each of these processes has a
+budget of its own: the reference's engine (``REF_TIMEOUT`` a run, and
+``REF_STUCK`` for XLA's wait in one collective, which is 40 s by
+default and a loaded host can exceed; ``_reference_engine`` says when
+it runs again), the serving run (``SERVE_TIMEOUT``) and the training
+run (``TRAIN_TIMEOUT``); each run's process group times out with its
+run.
 
 Tolerances: the sharded train step (fp32) against one rank within 1e-4
 (loss, grad_norm, every param after the step); MoE TP against EP, and both
@@ -17,20 +31,28 @@ logits against the reference's engine on its mesh by
 ``tests/test_torch_models.py``'s fp32 rule (allclose, atol = rtol = 1e-4)
 or within what the bf16 KV cache moves the reference's own logits.
 
-Serving on a named mesh (the same 8-rank run): packed-MLP decode, the
+Serving on a named mesh (the 8-rank serving run): packed-MLP decode, the
 engine's greedy tokens and per-step logits (within 1e-4), the AP route
 (tokens, the quantized projection inputs and every ``ap_report`` field
 equal to one device's, with no tolerance) and ``BatchServer`` waves (equal
 to sequential serving).  The one-device references of the AP cases run
 first, each on a rank of its own at the same time, and are shared with
-``all_gather_object``.
+``all_gather_object``.  A wave case's requests are all queued before rank
+0's dispatcher takes the first, so that they share the first wave however
+the threads are scheduled.
+
+On 2 ranks: a ``BatchServer`` on a mesh whose "model" axis is the whole
+world (so its process group is the default group) while the caller's
+thread runs the same engine and rank 0 heartbeats every millisecond, a
+merged AP wave whose first slot one rank holds past ``wave_timeout``,
+a step that fails on one rank only (in a float wave and in a merged AP
+wave), and two servers in a row.
 """
 import json
 import os
 import subprocess
 import sys
 import textwrap
-import threading
 
 import numpy as np
 import pytest
@@ -38,7 +60,12 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 TIMEOUT = 300
-EIGHT_TIMEOUT = 600     # the 8-rank run: training, decode and serving cases
+TRAIN_TIMEOUT = 720     # the 8-rank training run: train step, grads, decode
+SERVE_TIMEOUT = 900     # the 8-rank serving run
+REF_TIMEOUT = 300       # a run of the reference's engine before it
+REF_STUCK = 60          # XLA's limit on one collective's wait in that run
+REF_ATTEMPTS = 5        # runs of the reference's engine (see below)
+TWO_TIMEOUT = 240       # a 2-rank serving case
 TOL = 1e-4
 
 _RUNNER = '''
@@ -53,9 +80,11 @@ import torch.multiprocessing as mp
 
 
 def worker(rank, world, store, out):
+    import datetime
     torch.set_num_threads(1)
     dist.init_process_group("gloo", rank=rank, world_size=world,
-                            store=dist.FileStore(store, world))
+                            store=dist.FileStore(store, world),
+                            timeout=datetime.timedelta(seconds={timeout}))
     try:
         res = body(rank, world)
         if rank == 0:
@@ -79,7 +108,7 @@ def run_ranks(tmp_path, world: int, body: str,
     out = tmp_path / "out.json"
     script.write_text(_RUNNER.format(
         src=SRC, body=textwrap.dedent(body), world=world,
-        store=str(tmp_path / "store"), out=str(out)))
+        store=str(tmp_path / "store"), out=str(out), timeout=timeout))
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, str(script)], capture_output=True,
                           text=True, env=env, timeout=timeout)
@@ -128,6 +157,29 @@ AP_FIELDS = ("write_cycles", "compare_cycles", "sets", "resets",
              "emitted_passes", "pruned_passes", "resident_hits",
              "resident_misses", "weight_sparsity", "power",
              "n_arrays_total")
+
+# a wave case's requests, all queued before rank 0's dispatcher takes the
+# first: until the last submit the server's queue hands out nothing, so a
+# gap between the submissions (``gap`` seconds, which the dispatcher could
+# otherwise use to start a wave of the first alone) changes no wave
+_SUBMIT = """
+    def submit_together(srv, reqs, gap=0.1):
+        import threading
+        import time
+        queued = threading.Event()
+        get = srv.queue.get
+
+        def get_after_all(timeout=None):
+            queued.wait()
+            return get(timeout=timeout)
+        srv.queue.get = get_after_all
+        handles = []
+        for p, n in reqs:
+            handles.append(srv.submit(p, n))
+            time.sleep(gap)
+        queued.set()
+        return handles
+"""
 
 _EIGHT = """
     def train_step_case():
@@ -432,7 +484,7 @@ _EIGHT = """
                      ap_ctx=ap_ctx() if ap else None, mesh=mesh)
         reqs = AP_WAVE_REQUESTS if ap else WAVE_REQUESTS
         with BatchServer(eng) as srv:
-            handles = [srv.submit(p, n) for p, n in reqs]
+            handles = submit_together(srv, reqs)
             got = []
             for h in handles:
                 rep = h.ap_report(timeout=300)
@@ -468,6 +520,8 @@ _EIGHT = """
         return {k: v for d in every for k, v in d.items()}
 
     def body(rank, world):
+        if FAMILY == "train":
+            return train_cases()
         refs = references(rank)
         out = {f"packed {shape} {over}": packed_decode_case(tuple(shape),
                                                            over)
@@ -480,36 +534,25 @@ _EIGHT = """
         out["wave"] = wave_case(False, refs)
         out["wave ap"] = wave_case(True, refs)
         out["launcher"] = launcher_case()
-        for r, res in train_cases().items():
-            out[r] = res
         out["reference"] = reference_case(REF_PATH)
         return out
-
-    def wait_for(path, timeout=600):
-        # the reference's readings, written by a process started beside
-        # this one (or the error it died with)
-        import pickle
-        import time
-        t0 = time.monotonic()
-        while not os.path.exists(path):
-            if os.path.exists(path + ".err"):
-                raise RuntimeError(open(path + ".err").read())
-            if time.monotonic() - t0 > timeout:
-                raise TimeoutError(f"no {path}")
-            time.sleep(0.5)
-        with open(path, "rb") as f:
-            return pickle.load(f)
 
     def reference_case(path):
         # the reference's Engine on its (1, 2, 4) mesh of 8 devices against
         # the port's Engine(mesh=) on (1, 2, 4), on its packed weights
         # carried across: per-step logits and greedy tokens on the float
-        # route; at 1 layer the AP route's tokens and ap_report
+        # route; at 1 layer the AP route's tokens and ap_report.  Its
+        # readings were written before the ranks started (or the error
+        # its process ended with)
+        import pickle
         from torch.distributed.device_mesh import init_device_mesh
         from repro_torch.convert import params_from_arrays
         from repro_torch.models import model as M
         from repro_torch.serve import Engine, ServeCfg
-        ref = wait_for(path)
+        if not os.path.exists(path):
+            return {"error": open(path + ".err").read()}
+        with open(path, "rb") as f:
+            ref = pickle.load(f)
         mesh = init_device_mesh("cpu", (1, 2, 4),
                                 mesh_dim_names=("pod", "data", "model"))
         cfg = serve_cfg("qwen3-0.6b")
@@ -616,51 +659,81 @@ os.replace(OUT + ".part", OUT)
 '''
 
 
+# XLA's words when it ends a process whose CPU collective waited past
+# --xla_cpu_collective_call_terminate_timeout_seconds
+_XLA_STUCK = "Termination timeout for"
+
+
 def _reference_engine(out: str) -> None:
-    """``_REF_ENGINE`` in its own process; its error beside ``out``."""
+    """``_REF_ENGINE`` in its own process; its error beside ``out``.  On
+    a host with few free cores the reference's eager AP route sometimes
+    stalls in an all-gather of its 8 placeholder devices whose partner
+    never arrives (10 of 27 runs pinned to one or two cores, none of 3 on
+    eight idle ones), and XLA ends the process once the wait
+    passes ``REF_STUCK``; the same deterministic program then runs
+    again, up to ``REF_ATTEMPTS`` times.  Any other failure is reported
+    at once."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8")
-    try:
-        proc = subprocess.run(
-            [sys.executable, "-c", f"OUT = {out!r}\n"
-             f"AP_FIELDS = {AP_FIELDS!r}\n" + _REF_ENGINE],
-            capture_output=True, text=True, env=env, timeout=EIGHT_TIMEOUT)
-        err = None if proc.returncode == 0 else proc.stderr[-3000:]
-    except subprocess.TimeoutExpired:
-        err = "the reference's engine timed out"
-    if err is not None:
-        with open(out + ".err", "w") as f:
-            f.write(err)
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+               "--xla_cpu_collective_call_terminate_timeout_seconds="
+               f"{REF_STUCK}")
+    for _ in range(REF_ATTEMPTS):
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-c", f"OUT = {out!r}\n"
+                 f"AP_FIELDS = {AP_FIELDS!r}\n" + _REF_ENGINE],
+                capture_output=True, text=True, env=env,
+                timeout=REF_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            err = "the reference's engine timed out"
+            break
+        if proc.returncode == 0:
+            return
+        err = proc.stderr[-3000:]
+        if _XLA_STUCK not in proc.stderr:
+            break
+    with open(out + ".err", "w") as f:
+        f.write(err)
+
+
+def _eight(tmp, family: str, ref: str, timeout: float) -> dict:
+    """One run of 8 gloo ranks of ``_EIGHT``'s ``family`` of cases."""
+    return run_ranks(
+        tmp, 8, f"FAMILY = {family!r}\n"
+        f"CASES = {GRAD_CASES!r}\nDECODES = {DECODE_CASES!r}\n"
+        f"MORE = {MORE_GRAD_CASES!r}\n"
+        f"PACKED = {PACKED_DECODE_CASES!r}\n"
+        f"ENGINES = {ENGINE_MESHES!r}\nAPS = {AP_CASES!r}\n"
+        f"AP_REQUEST = {AP_REQUEST!r}\nAP_FIELDS = {AP_FIELDS!r}\n"
+        f"REF_PATH = {ref!r}\n"
+        f"TOL = {TOL!r}\n"
+        + textwrap.dedent(_SUBMIT) + textwrap.dedent(_EIGHT),
+        timeout=timeout)
 
 
 @pytest.fixture(scope="module")
-def eight_ranks(tmp_path_factory):
-    """One run of 8 gloo ranks for the train step, the grad, decode and
-    serving cases; the reference's engine on its mesh runs beside it, and
-    the last case reads it."""
-    tmp = tmp_path_factory.mktemp("eight")
+def eight_train(tmp_path_factory):
+    """One run of 8 gloo ranks for the train step, the grad and decode
+    cases."""
+    return _eight(tmp_path_factory.mktemp("eight_train"), "train", "",
+                  TRAIN_TIMEOUT)
+
+
+@pytest.fixture(scope="module")
+def eight_serve(tmp_path_factory):
+    """The reference's engine on its mesh, then one run of 8 gloo ranks
+    for the serving cases, whose last case reads the reference's."""
+    tmp = tmp_path_factory.mktemp("eight_serve")
     ref = str(tmp / "reference.pkl")
-    beside = threading.Thread(target=_reference_engine, args=(ref,))
-    beside.start()
-    try:
-        return run_ranks(
-            tmp, 8, f"CASES = {GRAD_CASES!r}\nDECODES = {DECODE_CASES!r}\n"
-            f"MORE = {MORE_GRAD_CASES!r}\n"
-            f"PACKED = {PACKED_DECODE_CASES!r}\n"
-            f"ENGINES = {ENGINE_MESHES!r}\nAPS = {AP_CASES!r}\n"
-            f"AP_REQUEST = {AP_REQUEST!r}\nAP_FIELDS = {AP_FIELDS!r}\n"
-            f"REF_PATH = {ref!r}\nTOL = {TOL!r}\n"
-            + textwrap.dedent(_EIGHT),
-            timeout=EIGHT_TIMEOUT)
-    finally:
-        beside.join()
+    _reference_engine(ref)
+    return _eight(tmp, "serve", ref, SERVE_TIMEOUT)
 
 
-def test_sharded_train_step_matches_one_rank(eight_ranks):
+def test_sharded_train_step_matches_one_rank(eight_train):
     """FSDP x TP on a (2, 2, 2) (pod, data, model) mesh of 8 gloo ranks
     equals the same step on one rank: qwen3-0.6b smoke, fp32, remat
     "none", batch 4 x 16."""
-    res = eight_ranks["train_step"]
+    res = eight_train["train_step"]
     (l1, l8), (g1, g8) = res["loss"], res["grad_norm"]
     assert np.isfinite(l1) and abs(l1 - l8) < TOL, res
     assert abs(g1 - g8) < TOL * g1, res
@@ -669,76 +742,76 @@ def test_sharded_train_step_matches_one_rank(eight_ranks):
 
 
 @pytest.mark.parametrize("arch,shape", GRAD_CASES)
-def test_sharded_grads_match_one_rank(eight_ranks, arch, shape):
+def test_sharded_grads_match_one_rank(eight_train, arch, shape):
     """Every grad of the sharded loss (remat "dots", fp32, MoE as "ep")
     against one rank's, within 1e-4 of the leaf's largest |g|."""
-    res = eight_ranks[arch]
+    res = eight_train[arch]
     assert abs(res["loss"][0] - res["loss"][1]) < TOL, res
     assert res["worst"] < TOL, res
 
 
 @pytest.mark.parametrize("arch,shape,overrides", MORE_GRAD_CASES)
-def test_sharded_grads_more_routes(eight_ranks, arch, shape, overrides):
+def test_sharded_grads_more_routes(eight_train, arch, shape, overrides):
     """The routes of the per-rank body the cases above leave out, grads
     (remat "dots", fp32) against one rank's within 1e-4 of each leaf's
     largest |g|: attention weights gathered whole where the heads divide
     no "model" rank, qkv bias, the frontend's embeds, the encoder and
     cross-attention, ``attn_batch_split``, and QAT (ternary w2 whole over
     "model" for its absmean, straight-through grads)."""
-    res = eight_ranks[f"{arch} {tuple(shape)} {overrides}"]
+    res = eight_train[f"{arch} {tuple(shape)} {overrides}"]
     assert abs(res["loss"][0] - res["loss"][1]) < TOL, res
     assert res["worst"] < TOL, res
 
 
-def test_sharded_train_step_microbatches(eight_ranks):
+def test_sharded_train_step_microbatches(eight_train):
     """A step of two microbatches on (2, 2, 2) (the batch a DTensor split
     in two) equals the same step on one rank: loss and params within
     1e-4."""
-    res = eight_ranks["microbatches"]
+    res = eight_train["microbatches"]
     assert np.isfinite(res["loss"][0]), res
     assert abs(res["loss"][0] - res["loss"][1]) < TOL, res
     assert res["param_err"] < TOL, res
 
 
-def test_sharded_ternary_forward_matches_one_rank(eight_ranks):
+def test_sharded_ternary_forward_matches_one_rank(eight_train):
     """The fake-quantized ternary MLP with d_ff split over "model" = 4:
     each column's absmean scale covers all of d_ff, so the logits equal
     one rank's within 1e-4 of their largest |value|."""
-    res = eight_ranks["ternary_forward"]
+    res = eight_train["ternary_forward"]
     assert res["worst"] < TOL * max(1.0, res["scale"]), res
 
 
 @pytest.mark.parametrize("arch,shape,batch", DECODE_CASES)
-def test_sharded_decode_matches_one_rank(eight_ranks, arch, shape, batch):
+def test_sharded_decode_matches_one_rank(eight_train, arch, shape, batch):
     """Six decode steps (fp32) on the mesh, the cache placed as the
     reference's dry-run places it (batch or positions over the data axes,
     kv heads or positions over "model", the SSM state over "model"),
     against the same steps on one rank: logits within 1e-4."""
-    res = eight_ranks[f"decode {arch} {tuple(shape)} {batch}"]
+    res = eight_train[f"decode {arch} {tuple(shape)} {batch}"]
     assert res["worst"] < TOL, res
 
 
 @pytest.mark.parametrize("shape,overrides", PACKED_DECODE_CASES)
-def test_sharded_packed_decode_matches_one_rank(eight_ranks, shape,
+def test_sharded_packed_decode_matches_one_rank(eight_serve, shape,
                                                 overrides):
     """Packed serving weights (``quantize_model_params``, fp32 compute),
     d_ff split over "model" = 4, 2 and 8 (and at d_ff 96 split in w1 but
     not in w2's packed words): six decode steps' logits within 1e-4 of one
     rank's.  Each rank's down projection is a partial sum; without its sum
     over "model" the logits are off by a tenth of their largest value."""
-    res = eight_ranks[f"packed {tuple(shape)} {overrides}"]
+    res = eight_serve[f"packed {tuple(shape)} {overrides}"]
     assert res["worst"] < TOL, res
     assert res["scale"] > 0.1, res
 
 
 @pytest.mark.parametrize("shape", ENGINE_MESHES)
-def test_engine_on_mesh_matches_one_device(eight_ranks, shape):
+def test_engine_on_mesh_matches_one_device(eight_serve, shape):
     """``Engine(mesh=)`` (packed qwen3-0.6b smoke, fp32, batch 4, prompt
     5, 4 new tokens): every step's logits within 1e-4 of the one-device
     engine's, the greedy tokens of ``generate`` and of the stepped request
     equal to its, the cache placed as DTensors, ``last_latency``'s buckets
     summing to the request."""
-    res = eight_ranks[f"engine {tuple(shape)}"]
+    res = eight_serve[f"engine {tuple(shape)}"]
     assert res["worst"] < TOL, res
     assert res["got"] == res["tokens"] == res["stepped"], res
     assert res["n_model_steps"] == 5 + 4 - 1 and res["latency_ok"], res
@@ -746,7 +819,7 @@ def test_engine_on_mesh_matches_one_device(eight_ranks, shape):
 
 
 @pytest.mark.parametrize("arch,shape,batch", AP_CASES)
-def test_ap_route_on_mesh_matches_one_device(eight_ranks, arch, shape,
+def test_ap_route_on_mesh_matches_one_device(eight_serve, arch, shape,
                                              batch):
     """The AP route on a mesh (1 layer, ``ArrayPool(4, 64, 64)``,
     ``x_levels=7``): every rank runs each projection on the whole input
@@ -759,7 +832,7 @@ def test_ap_route_on_mesh_matches_one_device(eight_ranks, arch, shape,
     in its last bit: the mesh's products run on each rank's rows, and the
     CPU's matmul rounds a product of fewer rows differently (in the
     attention's sums over "model" too), so it is held to 1e-6."""
-    res = eight_ranks[f"ap {arch} {tuple(shape)} {batch}"]
+    res = eight_serve[f"ap {arch} {tuple(shape)} {batch}"]
     assert res["n_quantized"][0] == res["n_quantized"][1] > 0, res
     assert res["x_int_equal"], res
     assert res["scale_rel"] < 1e-6, res
@@ -771,18 +844,18 @@ def test_ap_route_on_mesh_matches_one_device(eight_ranks, arch, shape,
 
 
 @pytest.mark.parametrize("route", ["wave", "wave ap"])
-def test_batch_server_on_mesh_matches_sequential(eight_ranks, route):
+def test_batch_server_on_mesh_matches_sequential(eight_serve, route):
     """A ``BatchServer`` on (1, 2, 4), two requests in one wave a step
     (the float route on packed weights, 4 steps each, or a merged AP wave
     at 1 layer, 2 steps each):
     tokens, and on the AP every ``ap_report`` field, equal to sequential
     serving on one device."""
-    res = eight_ranks[route]
+    res = eight_serve[route]
     assert res["got"] == res["want"], res
     assert res["n_waves"] == (4 if route == "wave" else 2), res
 
 
-def test_engine_on_mesh_matches_reference_on_its_mesh(eight_ranks):
+def test_engine_on_mesh_matches_reference_on_its_mesh(eight_serve):
     """The reference's ``Engine`` on its (1, 2, 4) mesh of 8 placeholder
     devices and the port's ``Engine(mesh=)`` on (1, 2, 4) gloo ranks, on
     the reference's packed weights carried across by ``convert``
@@ -798,7 +871,8 @@ def test_engine_on_mesh_matches_reference_on_its_mesh(eight_ranks):
     moves them.  At 1 layer on the AP (``ArrayPool(4, 64, 64)``,
     ``x_levels=7``, batch 2, 2 new tokens) the tokens and every
     ``ap_report`` field equal, with no tolerance."""
-    res = eight_ranks["reference"]
+    res = eight_serve["reference"]
+    assert "error" not in res, res.get("error")
     assert res["n_steps"][0] == res["n_steps"][1] == 5 + 4 - 1, res
     for step in res["steps"]:
         assert step["close"] or step["gap"] <= step["noise"], res["steps"]
@@ -812,16 +886,220 @@ def test_engine_on_mesh_matches_reference_on_its_mesh(eight_ranks):
         assert got[key] == want[key], key
 
 
-def test_launch_serve_in_process_group(eight_ranks):
+def test_launch_serve_in_process_group(eight_serve):
     """``launch.serve`` inside the 8-rank group serves on the elastic
     (data, model) = (1, 8) mesh and returns the one-device launcher's
     tokens (``tests/test_torch_serve.py`` runs that one)."""
     from repro_torch.launch import serve as launch_serve
-    res = eight_ranks["launcher"]
+    res = eight_serve["launcher"]
     want = launch_serve.main(["--arch", "qwen3-0.6b", "--smoke",
                               "--device", "cpu", "--new-tokens", "3"])
     assert res["world"] == 8
     assert res["got"] == want.tolist()
+
+
+# the 2-rank serving cases (after ``_EIGHT``'s helpers): the tiny packed
+# qwen3-0.6b of tests/test_torch_serve.py at 1 layer, fp32, on a (1, 1, 2)
+# mesh, whose "model" axis is the whole world, so its group is the
+# default group
+_TWO = """
+    TINY = {"d_model": 16, "d_ff": 24, "n_heads": 2, "n_kv_heads": 2,
+            "head_dim": 8, "vocab": 32, "ternary": {"enabled": True},
+            "compute_dtype": "float32", "n_layers": 1}
+
+    def tiny():
+        from torch.distributed.device_mesh import init_device_mesh
+        cfg = smoke_cfg("qwen3-0.6b", TINY)
+        mesh = init_device_mesh("cpu", (1, 1, 2),
+                                mesh_dim_names=("pod", "data", "model"))
+        return cfg, packed_params(cfg), mesh
+
+    def heartbeat_case(rank):
+        # the engine's tokens with no server open; then, the server idling
+        # with rank 0 heartbeating every millisecond, this thread runs the
+        # engine's collectives on the default group, and one request goes
+        # through the server
+        from repro_torch.serve import BatchServer, Engine, ServeCfg, batcher
+        cfg, params, mesh = tiny()
+        prompts = np.random.default_rng(0).integers(
+            1, cfg.vocab, (2, 4)).astype(np.int32)
+        eng = Engine(cfg, params, ServeCfg(max_len=16), mesh=mesh)
+        want = eng.generate(prompts, 6)
+        batcher._MeshOrder.heartbeat = 1e-3
+        with BatchServer(eng) as srv:
+            got = [eng.generate(prompts, 6).tolist() for _ in range(3)]
+            served = srv.submit(prompts, 6).result(timeout=60)
+        return {"want": want.tolist(), "got": got,
+                "served": served.tolist(), "n_waves": srv.n_waves}
+
+    def abort_case(rank):
+        # a merged AP wave of two requests with wave_timeout 1 s, rank 1's
+        # first slot held 3 s before its first graph call
+        import time
+        from repro_torch.serve import BatchServer, Engine, ServeCfg
+        cfg, params, mesh = tiny()
+        reqs = ((np.array([[3], [9]], np.int32), 2),
+                (np.array([[17], [5]], np.int32), 2))
+        one = Engine(cfg, params, ServeCfg(max_len=8), ap_ctx=ap_ctx(),
+                     device="cpu")
+        want = []
+        for p, n in reqs:
+            toks = one.generate(p, n)
+            rep = one.ap_report()
+            want.append([toks.tolist(), {k: rep[k] for k in AP_FIELDS}])
+        ctx = ap_ctx()
+        if rank == 1:
+            quantize, held = ctx.quantize, []
+
+            def slow(x):
+                if not held:
+                    held.append(True)
+                    time.sleep(3.0)
+                return quantize(x)
+            ctx.quantize = slow
+        eng = Engine(cfg, params, ServeCfg(max_len=8), ap_ctx=ctx,
+                     mesh=mesh)
+        with BatchServer(eng, wave_timeout=1.0) as srv:
+            handles = submit_together(srv, reqs)
+            got = []
+            for h in handles:
+                rep = h.ap_report(timeout=120)
+                got.append([h.result().tolist(),
+                            {k: rep[k] for k in AP_FIELDS}])
+        return {"want": want, "got": got, "n_waves": srv.n_waves}
+
+    def diverge_case(rank):
+        # two float requests in one wave; on rank 1 alone the first
+        # request's first sample raises, after its step's collectives
+        from repro_torch.serve import BatchServer, Engine, ServeCfg
+        cfg, params, mesh = tiny()
+        reqs = ((np.array([[3], [9]], np.int32), 3),
+                (np.array([[17], [5]], np.int32), 3))
+        eng = Engine(cfg, params, ServeCfg(max_len=8), mesh=mesh)
+        want = eng.generate(*reqs[1])
+        if rank == 1:
+            sample, failed = eng._sample, []
+
+            def failing(logits, index):
+                if not failed:
+                    failed.append(True)
+                    raise RuntimeError("rank 1's own failure")
+                return sample(logits, index)
+            eng._sample = failing
+        with BatchServer(eng) as srv:
+            first, second = submit_together(srv, reqs)
+            try:
+                first.result(timeout=120)
+                error = None
+            except RuntimeError as e:
+                error = type(e).__name__
+            got = second.result(timeout=120)
+        return {"error": error, "got": got.tolist(), "want": want.tolist(),
+                "n_waves": srv.n_waves}
+
+    def diverge_ap_case(rank):
+        # three requests in a merged AP wave; on rank 1 alone the first
+        # request's first sample raises, after its step's last graph call
+        # and collectives, while the other two slots have the rest of their
+        # steps, and their collectives, still to run
+        from repro_torch.serve import BatchServer, Engine, ServeCfg
+        cfg, params, mesh = tiny()
+        reqs = ((np.array([[3], [9]], np.int32), 3),
+                (np.array([[17], [5]], np.int32), 3),
+                (np.array([[12], [2]], np.int32), 3))
+        eng = Engine(cfg, params, ServeCfg(max_len=8), ap_ctx=ap_ctx(),
+                     mesh=mesh)
+        want = [eng.generate(*r).tolist() for r in reqs[1:]]
+        if rank == 1:
+            sample, failed = eng._sample, []
+
+            def failing(logits, index):
+                if not failed:
+                    failed.append(True)
+                    raise RuntimeError("rank 1's own failure")
+                return sample(logits, index)
+            eng._sample = failing
+        with BatchServer(eng) as srv:
+            first, *rest = submit_together(srv, reqs)
+            try:
+                first.result(timeout=120)
+                error = None
+            except RuntimeError as e:
+                error = type(e).__name__
+            got = [h.result(timeout=120).tolist() for h in rest]
+        return {"error": error, "got": got, "want": want,
+                "n_waves": srv.n_waves}
+
+    def servers_case(rank):
+        # two servers in a row, one request each; each server's process
+        # group is freed when it closes
+        import torch.distributed as dist
+        from repro_torch.serve import BatchServer, Engine, ServeCfg
+        cfg, params, mesh = tiny()
+        prompts = np.random.default_rng(1).integers(
+            1, cfg.vocab, (2, 4)).astype(np.int32)
+        eng = Engine(cfg, params, ServeCfg(max_len=16), mesh=mesh)
+        want = eng.generate(prompts, 3)
+        got, freed = [], []
+        for _ in range(2):
+            with BatchServer(eng) as srv:
+                group = srv._order.group
+                got.append(srv.submit(prompts, 3).result(timeout=60).tolist())
+            try:
+                dist.get_process_group_ranks(group)
+                freed.append(False)
+            except (KeyError, ValueError, RuntimeError):
+                freed.append(True)
+        return {"want": want.tolist(), "got": got, "freed": freed}
+"""
+
+
+@pytest.mark.parametrize("case", ["heartbeat_case", "abort_case",
+                                  "diverge_case", "diverge_ap_case",
+                                  "servers_case"])
+def test_batch_server_on_mesh_keeps_collectives_in_step(tmp_path, case):
+    """Two ways a rank's collectives could fall out of step with the other
+    rank's while a ``BatchServer`` serves on a 2-rank mesh, neither of
+    which may change an answer.  ``heartbeat_case``: rank 0's idle
+    heartbeat (every millisecond here) shares no process group with the
+    engine's collectives, which run on the default group ("model" spans
+    the world) from the caller's thread meanwhile: the tokens of three
+    ``generate`` calls and of a served request equal the engine's with no
+    server open (one device's may differ where the bf16 cache rounds a
+    near-tie the other way).
+    ``abort_case``: a merged AP wave on the mesh decides nothing by its
+    clock: with ``wave_timeout`` 1 s (which the server accepts as the
+    reference's does, and reads nowhere) and rank 1's first slot held 3 s, no
+    rank aborts the wave alone and replays its steps solo, so both
+    requests keep one wave a step (2) and their tokens and every
+    ``ap_report`` field equal sequential serving on one device.
+    ``diverge_case``: a step that fails on rank 1 alone (after its
+    collectives) fails its request on both ranks (``WaveDiverged``, rank
+    0's reading), and the other request of the wave goes on to the
+    engine's tokens in one wave a step (3).  ``diverge_ap_case``: the
+    same in a merged AP wave of three, where rank 1's failing slot must
+    not stop its peers from running the rest of their steps, whose
+    collectives rank 0 waits in.  ``servers_case``: two servers in a row serve the engine's
+    tokens, and each frees its process group when it closes."""
+    res = run_ranks(tmp_path, 2, f"AP_FIELDS = {AP_FIELDS!r}\n"
+                    + textwrap.dedent(_SUBMIT) + textwrap.dedent(_EIGHT)
+                    + textwrap.dedent(_TWO)
+                    + f"def body(rank, world):\n    return {case}(rank)\n",
+                    timeout=TWO_TIMEOUT)
+    if case == "heartbeat_case":
+        assert res["got"] == [res["want"]] * 3, res
+        assert res["served"] == res["want"], res
+        assert res["n_waves"] == 4 + 6 - 1, res
+    elif case == "abort_case":
+        assert res["got"] == res["want"], res
+        assert res["n_waves"] == 2, res
+    elif case == "servers_case":
+        assert res["got"] == [res["want"]] * 2, res
+        assert res["freed"] == [True, True], res
+    else:
+        assert res["error"] == "WaveDiverged", res
+        assert res["got"] == res["want"], res
+        assert res["n_waves"] == 3, res
 
 
 _REF_MOE = '''
@@ -854,7 +1132,9 @@ def test_moe_tp_ep_parity_and_reference(tmp_path):
     (carried across with ``convert``) and input."""
     ref = tmp_path / "ref.npz"
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+               "--xla_cpu_collective_call_terminate_timeout_seconds="
+               f"{TIMEOUT}")
     proc = subprocess.run(
         [sys.executable, "-c", f"OUT = {str(ref)!r}\n" + _REF_MOE],
         capture_output=True, text=True, env=env, timeout=TIMEOUT)
