@@ -153,13 +153,15 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
    matmul, the library product on a dense weight, beside each kernel's
    bound, at the main paths' shapes (and qwen2-72b's MLP width for the
    matmul).  Both matmul kernels are timed on the same inputs at every
-   shape (M = 1, 4, 8, 16, 2048; the routed one and the other, through its
-   own launcher), and the tensor-core kernel at each of its M tiles on the
-   MLP's products in both dtypes.  The schedule kernel is timed through
-   its wrapper and through ``tap_ripple_add`` (which builds the schedule
-   at each call, as callers do) beside the program kernel, counters off,
-   on the same schedule.  The matmul and schedule-kernel rows also give the device's
-   time alone: a CUDA graph of 20 calls, replayed.
+   shape (qwen3-0.6b's w1 at M = 1, 4, 8, 16, 2048 and w2 at M = 16,
+   2048; the routed one and the other, through its own launcher), and the
+   tensor-core kernel at each of its tiles and K splits on the MLP's
+   products in both dtypes (``kernel.tc_shape``'s choice marked).  The
+   schedule kernel is timed through its wrapper and through
+   ``tap_ripple_add`` (which builds the schedule at each call, as callers
+   do) beside the program kernel, counters off, on the same schedule.  The
+   matmul and schedule-kernel rows also give the device's time alone: a
+   CUDA graph of 20 calls, replayed.
 
 Prints the kernels line (one JSON object) and the card's ``nvidia-smi``
 name and power limit before the last line, which is
@@ -330,13 +332,15 @@ MESH_AP_WAVE_LAYERS = 7
 EXAMPLES_SAME = ("quickstart", "ap_arithmetic", "ternary_inference")
 EXAMPLES_CUT = {"serve_lm": ("--new-tokens", "8"),
                 "train_lm": ("--steps", "60")}
-# ternary-matmul timings: (model, K, N, M), K x N the model's w1
-MATMUL_TIMES = tuple(("qwen3-0.6b", *QWEN3_06B, m)
+# ternary-matmul timings: (model, product, K, N, M), K x N the product's
+# (w1: d_model x d_ff; w2: d_ff x d_model)
+MATMUL_TIMES = tuple(("qwen3-0.6b", "w1", *QWEN3_06B, m)
                     for m in (1, 4, 8, 16, 2048)) + \
-    tuple(("qwen2-72b", *QWEN2_72B, m) for m in (1, 16))
-# the kernels line's rows: (model, M, dtype)
-MATMUL_LINE = {"ternary_matmul": ("qwen3-0.6b", 1, "float32"),
-               "ternary_matmul_tc": ("qwen3-0.6b", 2048, "bfloat16")}
+    tuple(("qwen3-0.6b", "w2", *QWEN3_06B[::-1], m) for m in (16, 2048)) + \
+    tuple(("qwen2-72b", "w1", *QWEN2_72B, m) for m in (1, 16))
+# the kernels line's rows: (model, product, M, dtype)
+MATMUL_LINE = {"ternary_matmul": ("qwen3-0.6b", "w1", 1, "float32"),
+               "ternary_matmul_tc": ("qwen3-0.6b", "w1", 2048, "bfloat16")}
 
 KERNELS = {
     "tap_run_program": {
@@ -639,9 +643,11 @@ def phase_matmul_vs_plain(dev, log) -> dict[str, dict[str, float]]:
     # integer activations on the tensor cores, bf16 and fp32 (three bf16
     # passes): every fp32 sum is exact and both sides round acc * scale[n]
     # once, so y is bit for bit the plain version's; |x| < 2^19 at K = 16
-    # keeps the sums below 2^24 and fills all three fp32 parts
+    # keeps the sums below 2^24 and fills all three fp32 parts; qwen3-0.6b's
+    # w1 and w2 at M = 16 split K over clusters of 4 and 8 CTAs
     d, f = QWEN3_06B
-    for m, k, n, big in ((16, d, f, AP_MAX_ABS), (2048, d, f, AP_MAX_ABS),
+    for m, k, n, big in ((16, d, f, AP_MAX_ABS), (16, f, d, AP_MAX_ABS),
+                         (2048, d, f, AP_MAX_ABS),
                          (16, 16, 257, (1 << 19) - 1)):
         w_t = torch.from_numpy(
             rng.integers(-1, 2, (k, n)).astype(np.int8)).to(dev)
@@ -3190,7 +3196,7 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
     chunk = 1024                         # rows per pack/unpack step
     rows_out = []
     weights: dict = {}
-    for model, k, n, m in MATMUL_TIMES:
+    for model, product, k, n, m in MATMUL_TIMES:
         if (k, n) not in weights:
             weights.clear()              # free the previous model's
             torch.cuda.empty_cache()
@@ -3230,13 +3236,15 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
                 else PEAK_BF16_FLOP_PER_S) * 1e3)
             for kname, (ms, device_ms) in kernel_ms.items():
                 row = {"kernel": kname, "routed": kname == routed,
-                       "model": model, "m": m, "k": k, "n": n, "dtype": name,
+                       "model": model, "product": product, "m": m, "k": k,
+                       "n": n, "dtype": name,
                        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                        "library_ms": library_ms,
                        "library_device_ms": library_device_ms, **b,
                        "card": card}
                 rows_out.append(row)
-                log(f"  time {kname} {model} w1 M={m} K={k} N={n} {name}"
+                log(f"  time {kname} {model} {product} M={m} K={k} N={n} "
+                    f"{name}"
                     f" kernel {ms:.6f} ms (graph {device_ms:.6f}), plain "
                     f"{plain_ms:.3f} ms, library {library_ms:.6f} ms (graph "
                     f"{library_device_ms:.6f}), bound {b['bound_ms']:.6f} ms "
@@ -3247,9 +3255,12 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
     weights.clear()
     torch.cuda.empty_cache()
 
-    # the tensor-core kernel at each M tile on the MLP's products
+    # the tensor-core kernel at the shape rule's choices on the MLP's
+    # products: every tile of tokens bt (bt <= M <= 32 bt) by outputs, at
+    # each K split that a grid of a quarter of the card or less could take
     d, f = QWEN3_06B
-    for k, n in ((d, f), (f, d)):
+    n_sm = tk._sm_count(dev.index)
+    for product, k, n in (("w1", d, f), ("w2", f, d)):
         packed = pack_ternary(torch.randint(-1, 2, (k, n), generator=gen,
                                             device=dev, dtype=torch.int8))
         scale = torch.rand(n, generator=gen, device=dev) * 0.04 + 0.01
@@ -3257,18 +3268,30 @@ def phase_matmul_times(dev, card: str, log) -> list[dict]:
             for dtype in (torch.bfloat16, torch.float32):
                 name = str(dtype).split(".")[1]
                 x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-                auto = tk.tc_m_tile(m, n, tk._sm_count(dev.index))
-                for bm in tk.TC_M_TILES:
-                    ms = graph_ms(lambda: tk._launch_tensor_cores(
-                        x, packed, scale, bm=bm))
-                    rows_out.append({
-                        "kernel": "ternary_matmul_tc", "tile": bm,
-                        "chosen": bm == auto, "model": "qwen3-0.6b", "m": m,
-                        "k": k, "n": n, "dtype": name, "device_ms": ms,
-                        "card": card})
-                    log(f"  time ternary_matmul_tc M tile {bm}"
-                        f"{' (chosen)' if bm == auto else ''} M={m} K={k} "
-                        f"N={n} {name} {ms:.6f} ms (graph), card {card}")
+                auto = tk.tc_shape(m, n, k // PACK, n_sm, dtype)
+                for (bt, bw), words in tk.TC_TILES[dtype].items():
+                    if not bt <= max(m, 16) <= 32 * bt:
+                        continue
+                    ctas = -(-m // bt) * -(-n // bw)
+                    steps = -(-(k // PACK) // words)
+                    for split in tk.TC_SPLITS:
+                        if split > steps or (split > 1 and
+                                             ctas * split > 4 * n_sm):
+                            continue
+                        shape = (bt, bw, split)
+                        ms = graph_ms(lambda: tk._launch_tensor_cores(
+                            x, packed, scale, shape=shape))
+                        rows_out.append({
+                            "kernel": "ternary_matmul_tc", "tile": [bt, bw],
+                            "split": split, "chosen": shape == auto,
+                            "model": "qwen3-0.6b", "product": product,
+                            "m": m, "k": k, "n": n, "dtype": name,
+                            "device_ms": ms, "card": card})
+                        log(f"  time ternary_matmul_tc {product} tile "
+                            f"{bt}x{bw} split {split}"
+                            f"{' (chosen)' if shape == auto else ''} M={m} "
+                            f"K={k} N={n} {name} {ms:.6f} ms (graph), card "
+                            f"{card}")
 
     # the program kernel at the AP matmul's shape
     rng = np.random.default_rng(SEED + 7)
@@ -3350,7 +3373,8 @@ def mlp_share(model_res: dict, times: list[dict], card: str, log) -> dict:
     for name in ("float32", "bfloat16"):
         row = next(x for x in times if x["kernel"] == "ternary_matmul"
                    and x.get("routed") and x["model"] == MODEL_ARCH
-                   and x["m"] == m and x["dtype"] == name)
+                   and x.get("product") == "w1" and x["m"] == m
+                   and x["dtype"] == name)
         serve = model_res[name]["serve"]
         n = serve["launches_per_step"]["ternary_matmul"]
         step = serve["median_step_ms"]["kernel"]
@@ -3503,10 +3527,11 @@ def main() -> int:
 
     def line_row(name):
         if name in MATMUL_LINE:
-            model, m, dtype = MATMUL_LINE[name]
+            model, product, m, dtype = MATMUL_LINE[name]
             return next(x for x in report["times"] if x["kernel"] == name
                         and x.get("routed") and x["model"] == model
-                        and x["m"] == m and x["dtype"] == dtype)
+                        and x.get("product") == product and x["m"] == m
+                        and x["dtype"] == dtype)
         return next(x for x in report["times"] if x["kernel"] == name
                     and x.get("rows") == FULL_ROWS)
 

@@ -6,9 +6,10 @@ scale`` with the weights 2-bit in device memory.  Given tensors on the CPU
 it runs the plain version :func:`~.ref.ternary_matmul_ref`; given CUDA
 tensors it launches one of two kernels, or raises.  :func:`kernel_for`
 picks by rows alone, for fp32 and bf16 x alike: at least :data:`TC_MIN_M`
-rows run on the tensor cores (``csrc/ternary_matmul_tc.cu``, ``mma.sync`` on
-B fragments decoded from the words in registers; fp32 x as three exact bf16
-passes; M tile from :func:`tc_m_tile`), fewer on the CUDA cores
+rows run on the tensor cores (``csrc/ternary_matmul_tc.cu``, warpgroup
+``wgmma`` with the weights as A, decoded from the words straight into
+registers, and x as B in shared memory; fp32 x as three exact bf16 passes;
+tile and K split from :func:`tc_shape`), fewer on the CUDA cores
 (``csrc/ternary_matmul.cu``, fp32 FMAs; a grid spread over the card by
 :func:`cuda_core_shape`).  ``launch_counts`` counts the launches of each
 kernel (plain runs do not count).  Both build through
@@ -26,10 +27,15 @@ from ..cuda_lib import I32 as _I, I64 as _LL, VP as _VP
 from .ref import PACK, ternary_matmul_ref
 
 BM_TILES = (1, 2, 4, 8, 16)        # M tiles of the CUDA-core kernel
-TC_M_TILES = (16, 64, 128)         # M tiles of the tensor-core kernel
-TC_PREFILL_TILE = 64               # the M tile for grids that fill the card
 TC_MIN_M = 16                      # rows from which the tensor cores run
-TC_BN = 128                        # columns per CTA of the tensor-core kernel
+# the tensor-core kernel's tiles, (tokens, outputs) per CTA, by x's dtype,
+# each with the words of K (16 trits each) in one step of its pipeline
+TC_TILES = {torch.bfloat16: {(16, 64): 16, (64, 64): 4, (64, 128): 4,
+                             (128, 128): 8, (64, 256): 4, (256, 128): 8,
+                             (128, 256): 4},
+            torch.float32: {(16, 64): 8, (64, 64): 4, (64, 128): 4,
+                            (128, 128): 4, (64, 256): 4}}
+TC_SPLITS = (1, 2, 4, 8)           # tensor-core kernel: CTAs splitting K
 CC_COLS = (1, 4)                   # CUDA-core kernel: columns per lane
 CC_SPLITS = (1, 2, 4)              # CUDA-core kernel: CTAs splitting K
 CC_CHUNK_WORDS = 32                # CUDA-core kernel: words per K chunk
@@ -46,7 +52,7 @@ cuda_lib.register(cuda_lib.CudaLibrary(
 cuda_lib.register(cuda_lib.CudaLibrary(
     "ternary_matmul_tc", _CSRC, "ternary_matmul_tc.cu", (),
     "ternary_matmul_tc_launch",
-    (_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _I, _I, _VP)))
+    (_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP)))
 
 
 def kernel_for(dtype: torch.dtype, m: int) -> str:
@@ -82,16 +88,42 @@ def cuda_core_shape(m: int, n: int, k16: int, n_sm: int
     return bm, cols, split
 
 
-def tc_m_tile(m: int, n: int, n_sm: int) -> int:
-    """The tensor-core kernel's M tile: :data:`TC_PREFILL_TILE` rows where
-    that grid gives each of the ``n_sm`` SMs a CTA, else 16 (more CTAs, and
-    no padding rows for a decode batch).  The 128-row tile is built for
-    comparison: on an H100 it trailed the 64-row one at every MLP shape
-    that ``chip_smoke.py`` times (PERF.md)."""
-    tile = TC_PREFILL_TILE
-    if m >= tile and -(-m // tile) * -(-n // TC_BN) >= n_sm:
-        return tile
-    return TC_M_TILES[0]
+def tc_shape(m: int, n: int, k16: int, n_sm: int,
+             dtype: torch.dtype = torch.bfloat16) -> tuple[int, int, int]:
+    """The tensor-core kernel's (tokens per CTA, outputs per CTA, K split).
+
+    At most 16 rows take 16 tokens (a decode batch of 16: no padding rows)
+    by one warpgroup's 64 outputs, and up to 64 rows 64 by 64.  More take,
+    for bf16 x, 128 outputs by 128 tokens where that grid gives at least
+    every other of the ``n_sm`` SMs a CTA, else by 64; for fp32 x, whose
+    three passes make a step three times the work, 256 outputs by 64
+    tokens where that grid does so, else 128 by 64.  Then K's steps
+    (:data:`TC_TILES` gives a tile's words per step) split over a cluster
+    of 2, 4 or 8 CTAs: a decode tile's while the grid holds fewer than four
+    CTAs an SM and every CTA keeps two steps (its steps are short, and more
+    of them in flight hide their latency); another's while the grid covers
+    less than three quarters of the card and every CTA keeps eight steps
+    (a grid of 128 CTAs on 132 SMs gains nothing from a split and pays for
+    its partial sums; a CTA of few steps pays for its pipeline's fill)."""
+    def ctas(bt, bw):
+        return -(-m // bt) * -(-n // bw)
+    if m <= 16:
+        bt, bw = 16, 64
+    elif m < 64:
+        bt, bw = 64, 64
+    elif dtype == torch.float32:
+        bt, bw = (64, 256) if 2 * ctas(64, 256) >= n_sm else (64, 128)
+    else:
+        bt, bw = (128, 128) if m >= 128 and 2 * ctas(128, 128) >= n_sm \
+            else (64, 128)
+    steps = -(-k16 // TC_TILES[dtype][bt, bw])
+    split = TC_SPLITS[0]
+    while split < TC_SPLITS[-1] and (
+            ctas(bt, bw) * split < 4 * n_sm and steps >= 4 * split
+            if bt == 16 else
+            4 * ctas(bt, bw) * split < 3 * n_sm and steps >= 16 * split):
+        split *= 2
+    return bt, bw, split
 
 
 @functools.cache
@@ -169,30 +201,33 @@ def _launch_cuda_cores(x, packed, scale):
     return y
 
 
-def _launch_tensor_cores(x, packed, scale, bm=None):
+def _launch_tensor_cores(x, packed, scale, shape=None):
     """The tensor-core kernel, for either dtype (fp32 as three bf16
-    passes) and any M; ``bm`` overrides the M tile."""
+    passes) and any M; ``shape`` = (tokens, outputs, K split) overrides
+    :func:`tc_shape`."""
     x, packed, scale, y = _checked(x, packed, scale)
     m, kx = x.shape
     k16, n = packed.shape
-    if bm is None:
-        bm = tc_m_tile(m, n, _sm_count(x.device.index))
-    if bm not in TC_M_TILES:
-        raise ValueError(f"ternary_matmul_tc: M tile {bm} not in "
-                         f"{TC_M_TILES}")
-    if -(-m // bm) > MAX_GRID_Y:
+    if shape is None:
+        shape = tc_shape(m, n, k16, _sm_count(x.device.index), x.dtype)
+    bt, bw, split = shape
+    if (bt, bw) not in TC_TILES[x.dtype] or split not in TC_SPLITS:
+        raise ValueError(f"ternary_matmul_tc: tile {(bt, bw)} split {split} "
+                         f"not in {tuple(TC_TILES[x.dtype])} x {TC_SPLITS}")
+    if -(-m // bt) > MAX_GRID_Y:
         raise ValueError(f"M={m} needs more than {MAX_GRID_Y} row tiles")
     if m == 0 or n == 0:
         return y
-    # 16-byte cp.async needs every row start 16-byte aligned
+    # TMA needs every row start 16-byte aligned; other operands are staged
+    # by the kernel's producer warp element by element
     x_vec = (kx * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
     w_vec = n % 4 == 0 and packed.data_ptr() % 16 == 0
     launch = cuda_lib.entry("ternary_matmul_tc")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                     y.data_ptr(), m, kx, k16, n, _DTYPES[x.dtype], bm,
-                     int(x_vec), int(w_vec), stream)
+                     y.data_ptr(), m, kx, k16, n, _DTYPES[x.dtype], bt, bw,
+                     split, int(x_vec), int(w_vec), stream)
     cuda_lib.check_status(err, "ternary_matmul_tc")
     launch_counts["ternary_matmul_tc"] += 1
     return y

@@ -191,7 +191,12 @@ def test_failed_build_raises_and_does_not_fall_back(dev, tmp_path,
 # ---------------------------------------------------------------------------
 
 TC_SHAPES = [(16, 17, 1), (17, 64, 129), (100, 300, 96), (128, 1000, 130),
-             (129, 513, 257), (2048, 1024, 3072)]
+             (129, 513, 257), (2048, 1024, 3072), (16, 3072, 1024),
+             (2048, 3072, 1024)]
+# (tokens, outputs, K split) of the tensor-core kernel: every tile of
+# both dtypes, and K splits over clusters of 2 and 8
+TC_FORCED = [(16, 64, 1), (64, 64, 1), (64, 128, 1), (128, 128, 1),
+             (64, 256, 1), (16, 64, 8), (64, 128, 2)]
 
 
 def _tc_call(tk, x, packed, scale):
@@ -221,13 +226,16 @@ def test_tensor_core_kernel_matches_plain(dev, m, k, n):
                                rtol=5e-2)
 
 
-@pytest.mark.parametrize("bm", [16, 64, 128])
+@pytest.mark.parametrize("dtype,shape", [
+    (dtype, shape) for dtype in (torch.bfloat16, torch.float32)
+    for shape in TC_FORCED] + [(torch.bfloat16, (256, 128, 1)),
+                               (torch.bfloat16, (128, 256, 1))])
 @pytest.mark.parametrize("m,k,n", [(16, 1024, 3072), (2048, 1024, 3072),
                                    (129, 513, 257)])
-def test_tensor_core_integers_bit_identical(dev, m, k, n, bm):
-    """Integer activations |x| <= 7: every fp32 sum is exact and both sides
-    round acc * scale once, so y equals the plain version's bit for bit, at
-    every M tile."""
+def test_tensor_core_integers_bit_identical(dev, m, k, n, shape, dtype):
+    """Integer activations |x| <= 7: every fp32 sum is exact, also each
+    partial of a K split, and both sides round acc * scale once, so y
+    equals the plain version's bit for bit, at every tile and split."""
     from repro_torch.kernels.ternary_matmul import kernel as tk
     from repro_torch.kernels.ternary_matmul.ref import (pack_ternary,
                                                         ternary_matmul_ref)
@@ -236,9 +244,9 @@ def test_tensor_core_integers_bit_identical(dev, m, k, n, bm):
     w_t = torch.from_numpy(rng.integers(-1, 2, (kp, n)).astype(np.int8))
     x = torch.from_numpy(rng.integers(-7, 8, (m, k)).astype(np.float32))
     scale = torch.from_numpy(rng.uniform(0.01, 0.05, n).astype(np.float32))
-    x = x.to(dev, torch.bfloat16)
+    x = x.to(dev, dtype)
     packed, scale = pack_ternary(w_t).to(dev), scale.to(dev)
-    y = tk._launch_tensor_cores(x, packed, scale, bm=bm)
+    y = tk._launch_tensor_cores(x, packed, scale, shape=shape)
     assert torch.equal(y, ternary_matmul_ref(x, packed, scale))
 
 
@@ -528,7 +536,7 @@ def test_program_records_cached_per_program(dev):
 
 FP32_TC_SHAPES = [(16, 17, 129), (17, 300, 257), (2048, 513, 130),
                   (16, 513, 1), (17, 17, 96), (2048, 300, 3072),
-                  (2048, 1024, 3072)]
+                  (2048, 1024, 3072), (16, 3072, 1024), (2048, 3072, 1024)]
 
 
 def _routed(tk, x, packed, scale, name):
@@ -580,10 +588,10 @@ def test_fp32_on_tensor_cores_unaligned_rows(dev):
     y = _routed(tk, xu, packed, scale, "ternary_matmul_tc")
     torch.testing.assert_close(y, ternary_matmul_ref(xu, packed, scale),
                                atol=1e-4, rtol=1e-4)
-    for bm in (16, 64, 128):
+    for shape in TC_FORCED:
         torch.testing.assert_close(
-            tk._launch_tensor_cores(xu, packed, scale, bm=bm), y, atol=1e-4,
-            rtol=1e-4)
+            tk._launch_tensor_cores(xu, packed, scale, shape=shape), y,
+            atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -5,6 +5,7 @@ tolerances (1e-4 fp32, 5e-2 bf16) and exact on integers, the same padding
 semantics, the same dispatcher names and errors.  The port runs on the CPU
 (the kernel's plain version), the reference's Pallas kernel in interpret
 mode."""
+import functools
 import os
 import subprocess
 import sys
@@ -322,14 +323,111 @@ def test_three_pass_product_matches_reference(m, k, n):
     assert np.array_equal(yi.numpy(), want_i)
 
 
-@pytest.mark.parametrize("m,n,want", [
-    (2048, 3072, 64), (2048, 1024, 64), (512, 3072, 64), (16, 3072, 16),
-    (128, 3072, 16), (16, 29568, 16), (63, 29568, 16), (100, 29568, 64),
-    (1024, 1024, 16)])
-def test_tensor_core_m_tile_fills_the_card(m, n, want):
-    """The 64-row tile where its grid gives each of 132 SMs a CTA, else the
-    16-row tile."""
-    assert kernel.tc_m_tile(m, n, 132) == want
+@pytest.mark.parametrize("m,n,k16,want,want32", [
+    # qwen3-0.6b w1 and w2 prefill: 384 and 128 CTAs (fp32: 192, 64)
+    (2048, 3072, 64, (128, 128, 1), (64, 256, 1)),
+    (2048, 1024, 192, (128, 128, 1), (64, 256, 1)),
+    (512, 3072, 64, (128, 128, 1), (64, 256, 2)),
+    # qwen3-0.6b w1 and w2 at M = 16: 96 (fp32: 192) and 64 (128) CTAs
+    (16, 3072, 64, (16, 64, 2), (16, 64, 4)),
+    (16, 1024, 192, (16, 64, 4), (16, 64, 8)),
+    (128, 3072, 64, (64, 128, 2), (64, 128, 2)),
+    (16, 29568, 512, (16, 64, 2), (16, 64, 2)),      # qwen2-72b w1
+    (63, 29568, 512, (64, 64, 1), (64, 64, 1)),
+    (100, 29568, 512, (64, 128, 1), (64, 256, 1)),
+    (1024, 1024, 64, (64, 128, 1), (64, 128, 1)),
+    (16, 3072, 1, (16, 64, 1), (16, 64, 1))])       # one K step: no split
+def test_tensor_core_m_tile_fills_the_card(m, n, k16, want, want32):
+    """The tensor-core kernel's shape rule on 132 SMs: 16 tokens by 64
+    outputs up to 16 rows, 64 by 64 below 64, else (bf16) 128 or 64 tokens
+    by 128 outputs or (fp32) 64 tokens by 256 or 128 outputs, then K split
+    over a cluster: the 16-token tile's while the grid holds fewer than 4
+    CTAs an SM and every CTA keeps two steps, another's while the grid
+    covers less than three quarters of the card and every CTA keeps eight
+    steps.  At a decode batch of 16 the split fills the card:
+    qwen3-0.6b's w1 on at least 96 CTAs and w2 on at least 64 (the 16-row
+    tile of the kernel before it: 24 and 8)."""
+    for dtype, expected in ((torch.bfloat16, want), (torch.float32, want32)):
+        shape = kernel.tc_shape(m, n, k16, 132, dtype)
+        assert shape == expected
+        bt, bw, split = shape
+        assert (bt, bw) in kernel.TC_TILES[dtype]
+        assert split in kernel.TC_SPLITS
+        assert -(-k16 // kernel.TC_TILES[dtype][bt, bw]) >= split
+        ctas = -(-m // bt) * -(-n // bw) * split
+        if (m, n, k16) == (16, 3072, 64):
+            assert ctas >= 96
+        if (m, n, k16) == (16, 1024, 192):
+            assert ctas >= 64
+
+
+def _tc_sum_model(x, packed, scale, split, words):
+    """A plain model of the tensor-core kernel's sums: K' in steps of
+    ``words`` words (16 words deep) split over ``split`` CTAs (rank r takes
+    steps [r s / split, (r + 1) s / split)); in each CTA the product of
+    every 16-deep slice of x's bf16
+    parts (hi, mid, lo for fp32 x) and the weights added into an fp32 sum;
+    fp32 x: the sum starts from zero every 1024 of K and is then added
+    into the CTA's total; the totals added in rank order, times scale,
+    rounded once to x's dtype."""
+    m, k = x.shape
+    w = ref.unpack_ternary(packed, torch.float32)
+    kp, n = w.shape
+    xp = torch.zeros((m, kp), dtype=x.dtype)
+    xp[:, :k] = x
+    fp32 = x.dtype == torch.float32
+    parts = ref.split_bf16x3(xp) if fp32 else (xp,)
+    sk = 16 * words
+    steps = -(-kp // sk)
+    chunk = 1024 // sk if fp32 else steps
+    totals = []
+    for r in range(split):
+        beg, end = r * steps // split, (r + 1) * steps // split
+        total = torch.zeros((m, n))
+        for c0 in range(beg, end, chunk):
+            acc = torch.zeros((m, n))
+            for k0 in range(c0 * sk, min(end, c0 + chunk) * sk, 16):
+                for p in parts:
+                    acc = acc + p[:, k0:k0 + 16].float() @ w[k0:k0 + 16]
+            total = total + acc
+        totals.append(total)
+    y = totals[0]
+    for t in totals[1:]:
+        y = y + t
+    return (y * scale).to(x.dtype)
+
+
+@functools.cache
+def _k8192_case():
+    """qwen2-72b's K = 8192 at N = 128 and M = 16: the reference's weights,
+    normal fp32 x and integer x (|x| <= 7), with the reference's kernel's
+    outputs (interpret mode)."""
+    _, (t_packed, t_scale), (o_packed, o_scale) = _ref_weights(8192, 128, 81)
+    tx, ox = _x(16, 8192, 82, torch.float32)
+    xi = np.random.default_rng(83).integers(-7, 8, (16, 8192)).astype(
+        np.float32)
+    want = np.array(ref_ops.ternary_matmul_op(tx, t_packed, t_scale))
+    want_i = np.array(ref_ops.ternary_matmul_op(jnp.asarray(xi), t_packed,
+                                                t_scale))
+    return o_packed, o_scale, ox, torch.from_numpy(xi), want, want_i
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_tensor_core_summation_order_matches_reference(split):
+    """The tensor-core kernel's order of sums (K in its tiles' steps split
+    over a cluster, promoted fp32 chunks of 1024, partials in rank order),
+    modelled in plain PyTorch, within 1e-4 + 1e-4·|want| of the reference's
+    kernel at K = 8192, and exact on integer x in both dtypes."""
+    packed, scale, x, xi, want, want_i = _k8192_case()
+    for words in sorted(set(kernel.TC_TILES[torch.float32].values())):
+        y = _tc_sum_model(x, packed, scale, split, words)
+        np.testing.assert_allclose(y.numpy(), want, atol=1e-4, rtol=1e-4)
+        yi = _tc_sum_model(xi, packed, scale, split, words)
+        assert np.array_equal(yi.numpy(), want_i)
+    for words in sorted(set(kernel.TC_TILES[torch.bfloat16].values())):
+        yb = _tc_sum_model(xi.to(torch.bfloat16), packed, scale, split,
+                           words)
+        assert torch.equal(yb, torch.from_numpy(want_i).to(torch.bfloat16))
 
 
 def test_bf16_prefill_on_cpu_takes_plain_version():
@@ -349,7 +447,8 @@ def test_bf16_prefill_on_cpu_takes_plain_version():
 
 def test_tensor_core_library_is_registered():
     """The tensor-core kernel is its own library on the one build path,
-    with its source under csrc/, computing with bf16 mma.sync."""
+    with its source under csrc/, computing with warpgroup wgmma (A, the
+    weights, from registers) and no mma.sync."""
     from repro_torch.kernels import cuda_lib
     lib = cuda_lib.LIBRARIES["ternary_matmul_tc"]
     src = lib.csrc / lib.source
@@ -358,7 +457,8 @@ def test_tensor_core_library_is_registered():
     assert src.is_file() and lib.entry == "ternary_matmul_tc_launch"
     assert lib.path().parent == cuda_lib.BUILD_DIR
     text = src.read_text()
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    assert "wgmma.mma_async.sync.aligned.m64n" in text
+    assert "mma.sync" not in text
     assert "split3" in text             # fp32 x as three bf16 passes
     assert f'extern "C" int {lib.entry}(' in text
     assert set(kernel.launch_counts) == {"ternary_matmul",
