@@ -101,16 +101,14 @@ from .power import (Counters, PowerAccum, PowerInterval, PowerTimeline,
                     emit_counter_tracks, graph_power, partition_blocks,
                     pool_power)
 from .stats import TracedStats, accumulate, mac_sparsity, to_ap_stats
-from .trace import (Tracer, current_tracer, global_tracer,
-                    reset_global_tracer, tracing, validate_chrome_trace)
+from .trace import Tracer, current_tracer, tracing, validate_chrome_trace
 
 __all__ = [
     "caches_mod", "exec", "faults_mod", "graph_mod", "ir", "layers_mod",
     "lower", "mac", "metrics_mod", "pool_mod", "power_mod", "runtime_mod",
     "stats", "trace_mod",
     "MetricsRegistry", "get_registry",
-    "Tracer", "current_tracer", "global_tracer", "reset_global_tracer",
-    "tracing", "validate_chrome_trace",
+    "Tracer", "current_tracer", "tracing", "validate_chrome_trace",
     "cache_stats", "clear_compile_caches",
     "ResidentError", "ResidentEvicted", "ResidentHandle", "ResidentStale",
     "ResidentStore",

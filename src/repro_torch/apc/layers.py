@@ -52,6 +52,7 @@ from .graph import ProgramGraph
 from .mac import (compile_mac_tiled, decode_signed_digits_jnp,
                   encode_weight_digits_jnp, mac_acc_width,
                   mac_weight_support, matmul_mac_rows, weight_digest)
+from .metrics import get_registry
 from .power import PowerAccum, graph_power
 from .runtime import Runtime
 
@@ -465,28 +466,33 @@ class APServeContext:
     def linear(self, key, packed: torch.Tensor, scale: torch.Tensor,
                label: str = "") -> APLinear:
         """Cached APLinear for packed weights (one unpack per weight);
-        weights pin resident into the pool's bank at construction."""
+        weights pin resident into the pool's bank at construction.  A
+        miss is an ``ap.linear_build`` span and one ``ap.linear.builds``."""
         ck = (key, id(packed))
         hit = self._linears.get(ck)
         if hit is None:
-            hit = (packed, APLinear.from_packed(packed, scale,
-                                                radix=self.radix,
-                                                label=label,
-                                                store=self._resident_store()))
+            with trace.span("ap.linear_build", cat="serve", label=label):
+                hit = (packed, APLinear.from_packed(
+                    packed, scale, radix=self.radix, label=label,
+                    store=self._resident_store()))
+            get_registry().counter("ap.linear.builds").inc()
             self._cache_put(ck, hit)       # pin packed so id() stays valid
         return hit[1]
 
     def expert_linears(self, key, w_stack: torch.Tensor,
                        label: str = "") -> list[APLinear]:
         """Cached per-expert APLinears from stacked dense [E, K, N];
-        every expert's weights pin resident at construction."""
+        every expert's weights pin resident at construction.  A miss is
+        one ``ap.linear_build`` span and one ``ap.linear.builds``."""
         ck = (key, id(w_stack))
         hit = self._linears.get(ck)
         if hit is None:
-            lins = [APLinear.from_dense(w_stack[e], radix=self.radix,
-                                        label=f"{label}e{e}",
-                                        store=self._resident_store())
-                    for e in range(w_stack.shape[0])]
+            with trace.span("ap.linear_build", cat="serve", label=label):
+                lins = [APLinear.from_dense(w_stack[e], radix=self.radix,
+                                            label=f"{label}e{e}",
+                                            store=self._resident_store())
+                        for e in range(w_stack.shape[0])]
+            get_registry().counter("ap.linear.builds").inc()
             hit = (w_stack, lins)
             self._cache_put(ck, hit)
         return hit[1]

@@ -8,9 +8,9 @@ aggregates the ROADMAP's continuous-batching (p50/p99) and autotuner
 (per-launch timing) items consume.
 
 Instruments are cheap enough to record unconditionally (a lock + a few
-scalar updates), so unlike spans they are **not** gated by
-``REPRO_AP_TRACE`` — instrumentation sites bump them at coarse
-granularity (per compile, per upload, per request), never per step.
+scalar updates), so unlike spans they are **not** gated by the tracer —
+instrumentation sites bump them at coarse granularity (per compile, per
+upload, per pool run, per ``APLinear`` build, per request).
 
 :class:`Histogram` keeps a bounded sample window (reservoir of the most
 recent ``max_samples`` observations) plus exact count/sum/min/max;

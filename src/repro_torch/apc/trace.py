@@ -3,18 +3,19 @@
 Zero required dependencies (stdlib only) and strictly pay-for-what-you-use:
 every instrumentation site goes through the module-level front doors
 (:func:`span` / :func:`instant` / :func:`attribute`), which cost one
-contextvar read plus one env check when no tracer is active and return a
-shared no-op object — ``REPRO_AP_TRACE`` unset/0 leaves the executor
-trajectory untouched (the ``trace_overhead`` row in
-``benchmarks/apc_bench.json`` keeps that honest, and
-``tests/test_trace.py`` pins bit-identical digits/APStats either way).
+global read when no tracer is installed and return a shared no-op object,
+so an untraced run's trajectory is untouched (``tests/test_torch_runtime.
+py`` pins bit-identical digits and APStats either way).
 
 Two clocks, one timeline:
 
 - **Host time** — ``time.perf_counter_ns()`` spans measure what the host
   orchestrator actually does (compile, encode, dispatch, drain).  Because
   CUDA launches are asynchronous, a host span is dispatch+drain time, not
-  device busy time.
+  device busy time.  A tracer takes the offset between that clock and
+  ``time.time_ns()`` once, when it starts: :meth:`Tracer.epoch_ns` gives
+  any record's interval on the epoch clock that ``torch.profiler``'s
+  device events (``start_ns()``) use, so host spans line up with kernels.
 - **Model time** — the occupancy model's cycle schedule rendered at Table
   XI timings (:func:`Tracer.model_span`): one track per ``devD/arrA`` of
   the bank, emitted by :class:`~repro_torch.apc.runtime.Runtime` from
@@ -27,51 +28,46 @@ Attribution events (:meth:`Tracer.attribute`, emitted by
 exact integer counters merged into the caller's
 :class:`~repro_torch.core.ap.APStats` — sets/resets, compare/write cycles, and
 the mismatch histogram — tagged with the *phase* (category of the
-innermost open span: compile / pool / runtime / serve / ...).  Summing
-them (:meth:`Tracer.total_ap_stats`) therefore reproduces the aggregated
-APStats **bit-exactly**, which is what makes per-phase cycle/energy
-breakdowns trustworthy: they are a partition of the real totals, not a
-second estimate.
+innermost open span of the emitting thread: compile / pool / runtime /
+serve / ...).  Summing them (:meth:`Tracer.total_ap_stats`) therefore
+reproduces the aggregated APStats **bit-exactly**, which is what makes
+per-phase cycle/energy breakdowns trustworthy: they are a partition of the
+real totals, not a second estimate.
 
-Scoping: a tracer is installed per-context via :func:`tracing` (the
-benchmark/report entry points), or process-wide by ``REPRO_AP_TRACE=1``
-(the lazily-created :func:`global_tracer`).  :func:`disabled` force-masks
-any active tracer — the overhead benchmark and parity tests use it.
+Threads: :func:`tracing` installs one tracer for the whole process, so
+every thread records into it (a serving process's dispatcher and the
+workers of a merged AP wave included).  Each thread keeps its own span
+stack, so spans nest per thread and a span's ``parent`` is its own
+thread's; every record carries its thread's name.  Records are appended to
+shared lists (an append is atomic under the GIL): no lock per span.
+:func:`disabled` masks the tracer in the calling context only (the parity
+tests use it).
 
 Export is Chrome ``trace_event`` JSON (:meth:`Tracer.to_chrome` /
 :meth:`Tracer.write`): open the file in Perfetto (https://ui.perfetto.dev)
-or ``chrome://tracing``.  Host spans live under pid 0, model-time tracks
-under pid 1; nesting in the viewer is by time containment per track.
+or ``chrome://tracing``.  Host spans live under pid 0, one track per
+(track, thread), model-time tracks under pid 1; nesting in the viewer is
+by time containment per track.
 """
 from __future__ import annotations
 
 import json
-import os
+import threading
 import time
 from contextlib import contextmanager
 from contextvars import ContextVar
 from dataclasses import dataclass, field
-from typing import Any, Iterator
+from typing import Iterator
 
 __all__ = [
-    "TRACE_ENV", "Tracer", "SpanRecord", "InstantRecord",
-    "AttributionRecord", "CounterRecord", "tracing", "disabled",
-    "current_tracer", "global_tracer", "reset_global_tracer", "env_enabled",
+    "Tracer", "SpanRecord", "InstantRecord", "AttributionRecord",
+    "CounterRecord", "tracing", "disabled", "current_tracer",
     "span", "instant", "attribute", "traced_compile",
     "validate_chrome_trace",
 ]
 
-TRACE_ENV = "REPRO_AP_TRACE"
-
 HOST_PID = 0              # host-orchestration timeline
 MODEL_PID = 1             # model-time (Table XI cycle schedule) timeline
-
-
-def env_enabled() -> bool:
-    """``REPRO_AP_TRACE`` truthiness (read per call, so tests/CI can flip
-    it without re-importing)."""
-    v = os.environ.get(TRACE_ENV, "")
-    return v.lower() not in ("", "0", "false", "off", "no")
 
 
 # ---------------------------------------------------------------------------
@@ -89,6 +85,7 @@ class SpanRecord:
     pid: int = HOST_PID
     args: dict = field(default_factory=dict)
     parent: str | None = None        # enclosing span's name (host spans)
+    thread: str = ""                 # name of the recording thread
 
 
 @dataclass
@@ -100,6 +97,7 @@ class InstantRecord:
     track: str = "host"
     pid: int = HOST_PID
     args: dict = field(default_factory=dict)
+    thread: str = ""
 
 
 @dataclass
@@ -118,6 +116,7 @@ class CounterRecord:
     track: str
     pid: int
     values: dict
+    thread: str = ""
 
 
 @dataclass
@@ -136,13 +135,14 @@ class AttributionRecord:
     n_rows: int
     mismatch_hist: tuple[int, ...]
     ts_ns: int
+    thread: str = ""
 
 
 class _OpenSpan:
     """A span in flight; mutable ``args`` so callers can annotate before
     close (e.g. cache hit/miss resolved only after the cached call)."""
 
-    __slots__ = ("tracer", "name", "cat", "track", "ts_ns", "args")
+    __slots__ = ("tracer", "name", "cat", "track", "ts_ns", "args", "keep")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, track: str,
                  ts_ns: int, args: dict):
@@ -152,13 +152,18 @@ class _OpenSpan:
         self.track = track
         self.ts_ns = ts_ns
         self.args = args
+        self.keep = True
 
     def set(self, **kw) -> "_OpenSpan":
         self.args.update(kw)
         return self
 
+    def drop(self) -> None:
+        """Close without a record (it still nests while open)."""
+        self.keep = False
+
     def __enter__(self) -> "_OpenSpan":
-        self.tracer._stack.append(self)
+        self.tracer._thread_state()[0].append(self)
         return self
 
     def __exit__(self, *exc) -> bool:
@@ -191,19 +196,22 @@ _NULL_SPAN = _NullSpan()
 class Tracer:
     """Collects spans, instants, and attribution events for one scope.
 
-    Not thread-safe by design: the AP serving path is host-orchestrated on
-    one thread, and the no-contention fast path is the point.  Create one
-    tracer per thread if you must trace concurrently.
+    Any number of threads may record at once: each keeps its own span
+    stack (``parent`` and the attribution phase come from the calling
+    thread's spans), and records go to shared lists by GIL-atomic appends.
 
     Public API:
 
-    - :meth:`span` — context manager; nested spans stack (``parent`` is
-      the enclosing span, phase for attribution is the innermost ``cat``).
+    - :meth:`span` — context manager; nested spans stack per thread
+      (``parent`` is the enclosing span, phase for attribution is the
+      innermost ``cat``).
     - :meth:`instant` — point event.
     - :meth:`model_span` — explicit-timestamp span on the model-time
       timeline (``pid=1``), one track per device/array.
     - :meth:`attribute` — exact APStats-delta counters; see
       :meth:`total_ap_stats` / :meth:`phase_totals`.
+    - :meth:`epoch_ns` — a record's interval on ``time.time_ns()``'s
+      clock (``torch.profiler``'s).
     - :meth:`to_chrome` / :meth:`write` — Chrome/Perfetto ``trace_event``
       JSON export.
     """
@@ -212,38 +220,64 @@ class Tracer:
         self.meta = dict(meta or {})
         self.events: list[SpanRecord | InstantRecord | CounterRecord] = []
         self.attributions: list[AttributionRecord] = []
-        self._stack: list[_OpenSpan] = []
+        self._local = threading.local()
         self._clock = clock
-        self._t0 = clock()
+        t0 = clock()
+        wall = time.time_ns()
+        t1 = clock()
+        self._t0 = t0
+        # time.time_ns() at the origin (the wall reading taken halfway
+        # between the two clock readings): record time + this = epoch ns
+        self.origin_epoch_ns = wall - (t1 - t0) // 2
 
     # -- recording ----------------------------------------------------------
 
+    def _thread_state(self) -> tuple[list[_OpenSpan], str]:
+        """The calling thread's (span stack, thread name)."""
+        try:
+            return self._local.state
+        except AttributeError:
+            state = self._local.state = ([], threading.current_thread().name)
+            return state
+
     def now_ns(self) -> int:
         return self._clock() - self._t0
+
+    def epoch_ns(self, rec) -> tuple[int, int]:
+        """``(start, end)`` of a record in ``time.time_ns()`` nanoseconds,
+        the clock of ``torch.profiler``'s device events; an instant's end
+        is its start.  (A model-time span is placed under its host span,
+        so its interval is the model's, shifted onto this clock.)"""
+        start = self.origin_epoch_ns + rec.ts_ns
+        return start, start + getattr(rec, "dur_ns", 0)
 
     def span(self, name: str, cat: str = "host", track: str = "host",
              **args) -> _OpenSpan:
         return _OpenSpan(self, name, cat, track, self.now_ns(), args)
 
     def _close(self, sp: _OpenSpan) -> None:
-        top = self._stack[-1] if self._stack else None
+        stack, thread = self._thread_state()
+        top = stack[-1] if stack else None
         if top is not sp:
             raise RuntimeError(
                 f"span {sp.name!r} closed while "
                 f"{top.name if top else None!r} is innermost "
                 f"— spans must strictly nest")
-        self._stack.pop()
-        parent = self._stack[-1].name if self._stack else None
+        stack.pop()
+        if not sp.keep:
+            return
         self.events.append(SpanRecord(
             name=sp.name, cat=sp.cat, ts_ns=sp.ts_ns,
             dur_ns=self.now_ns() - sp.ts_ns, track=sp.track,
-            args=sp.args, parent=parent))
+            args=sp.args, parent=stack[-1].name if stack else None,
+            thread=thread))
 
     def instant(self, name: str, cat: str | None = None,
                 track: str = "host", **args) -> None:
         self.events.append(InstantRecord(
             name=name, cat=cat if cat is not None else self.current_phase(),
-            ts_ns=self.now_ns(), track=track, args=args))
+            ts_ns=self.now_ns(), track=track, args=args,
+            thread=self._thread_state()[1]))
 
     def model_span(self, name: str, *, track: str, start_ns: float,
                    dur_ns: float, cat: str = "model", **args) -> None:
@@ -253,7 +287,7 @@ class Tracer:
         self.events.append(SpanRecord(
             name=name, cat=cat, ts_ns=int(start_ns),
             dur_ns=max(1, int(dur_ns)), track=track, pid=MODEL_PID,
-            args=args))
+            args=args, thread=self._thread_state()[1]))
 
     def counter(self, name: str, *, track: str, ts_ns: float,
                 pid: int = MODEL_PID, cat: str = "power",
@@ -275,11 +309,13 @@ class Tracer:
             clean[k] = float(v)
         self.events.append(CounterRecord(
             name=name, cat=cat, ts_ns=max(0, int(ts_ns)), track=track,
-            pid=pid, values=clean))
+            pid=pid, values=clean, thread=self._thread_state()[1]))
 
     def current_phase(self) -> str:
-        """Category of the innermost open span (``"untracked"`` outside)."""
-        return self._stack[-1].cat if self._stack else "untracked"
+        """Category of the calling thread's innermost open span
+        (``"untracked"`` outside)."""
+        stack = self._thread_state()[0]
+        return stack[-1].cat if stack else "untracked"
 
     def attribute(self, *, sets: int, resets: int, compare_cycles: int,
                   write_cycles: int, n_rows: int,
@@ -287,15 +323,17 @@ class Tracer:
         """Record one program's exact APStats delta under the current
         phase, and fold it into the innermost open span's ``ap`` args so
         the timeline shows cycles where they were charged."""
+        stack, thread = self._thread_state()
         rec = AttributionRecord(
-            phase=self.current_phase(), label=label, sets=int(sets),
-            resets=int(resets), compare_cycles=int(compare_cycles),
+            phase=stack[-1].cat if stack else "untracked", label=label,
+            sets=int(sets), resets=int(resets),
+            compare_cycles=int(compare_cycles),
             write_cycles=int(write_cycles), n_rows=int(n_rows),
             mismatch_hist=tuple(int(h) for h in mismatch_hist),
-            ts_ns=self.now_ns())
+            ts_ns=self.now_ns(), thread=thread)
         self.attributions.append(rec)
-        if self._stack:
-            agg = self._stack[-1].args.setdefault(
+        if stack:
+            agg = stack[-1].args.setdefault(
                 "ap", {"programs": 0, "sets": 0, "resets": 0,
                        "compare_cycles": 0, "write_cycles": 0})
             agg["programs"] += 1
@@ -360,14 +398,17 @@ class Tracer:
     def to_chrome(self) -> dict:
         """Chrome ``trace_event`` JSON object (Perfetto-loadable).
 
-        Host spans under pid 0, model-time tracks under pid 1; tids are
-        assigned per track name in first-seen order, with ``thread_name``
-        metadata so the viewer labels every device/array track.
+        Host spans under pid 0, one tid per (track, recording thread);
+        model-time tracks under pid 1, one tid per track name; tids in
+        first-seen order, with ``thread_name`` metadata so the viewer
+        labels every track.  ``otherData`` holds ``origin_epoch_ns``, the
+        ``time.time_ns()`` reading of ``ts`` 0.
         """
         tids: dict[tuple[int, str], int] = {}
 
-        def tid(pid: int, track: str) -> int:
-            key = (pid, track)
+        def tid(pid: int, track: str, thread: str = "") -> int:
+            key = (pid, f"{track} ({thread})" if pid == HOST_PID and thread
+                   else track)
             if key not in tids:
                 tids[key] = len(tids)
             return tids[key]
@@ -375,7 +416,7 @@ class Tracer:
         trace_events: list[dict] = []
         for ev in self.events:
             base = {"name": ev.name, "cat": ev.cat, "pid": ev.pid,
-                    "tid": tid(ev.pid, ev.track),
+                    "tid": tid(ev.pid, ev.track, ev.thread),
                     "ts": ev.ts_ns / 1000.0,
                     "args": ev.values if isinstance(ev, CounterRecord)
                             else ev.args}
@@ -396,7 +437,8 @@ class Tracer:
                 "name": f"ap.program:{rec.label}" if rec.label
                         else "ap.program",
                 "cat": rec.phase, "ph": "i", "s": "t", "pid": HOST_PID,
-                "tid": tid(HOST_PID, "host"), "ts": rec.ts_ns / 1000.0,
+                "tid": tid(HOST_PID, "host", rec.thread),
+                "ts": rec.ts_ns / 1000.0,
                 "args": {"sets": rec.sets, "resets": rec.resets,
                          "compare_cycles": rec.compare_cycles,
                          "write_cycles": rec.write_cycles,
@@ -414,7 +456,8 @@ class Tracer:
         return {"traceEvents": meta_events + trace_events,
                 "displayTimeUnit": "ms",
                 "otherData": dict(self.meta, clock="perf_counter_ns",
-                                  origin_ns=self._t0)}
+                                  origin_ns=self._t0,
+                                  origin_epoch_ns=self.origin_epoch_ns)}
 
     def write(self, path: str) -> str:
         """Serialize :meth:`to_chrome` to ``path``; returns the path."""
@@ -463,60 +506,49 @@ def validate_chrome_trace(doc: dict) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# Scoping: contextvar installation + env-gated global tracer
+# Scoping: one installed tracer for the process, masked per context
 # ---------------------------------------------------------------------------
 
-_DISABLED = object()           # sentinel: mask any tracer, env included
-_ACTIVE: ContextVar[Any] = ContextVar("repro_ap_tracer", default=None)
-_GLOBAL: Tracer | None = None
+_INSTALLED: Tracer | None = None
+_MASKED: ContextVar[bool] = ContextVar("repro_ap_trace_masked",
+                                       default=False)
 
 
 def current_tracer() -> Tracer | None:
-    """The active tracer: the contextvar-installed one, else the
-    env-enabled process-global one, else None (no-op instrumentation)."""
-    tr = _ACTIVE.get()
-    if tr is not None:
-        return None if tr is _DISABLED else tr
-    if env_enabled():
-        return global_tracer()
-    return None
-
-
-def global_tracer() -> Tracer:
-    """The lazily-created process-global tracer (what ``REPRO_AP_TRACE=1``
-    routes to when no scoped tracer is installed)."""
-    global _GLOBAL
-    if _GLOBAL is None:
-        _GLOBAL = Tracer(meta={"scope": f"env:{TRACE_ENV}"})
-    return _GLOBAL
-
-
-def reset_global_tracer() -> None:
-    """Drop the process-global tracer (tests; fresh-request isolation)."""
-    global _GLOBAL
-    _GLOBAL = None
+    """The installed tracer, or None when there is none or this context
+    is inside :func:`disabled` (no-op instrumentation)."""
+    tr = _INSTALLED
+    if tr is None or _MASKED.get():
+        return None
+    return tr
 
 
 @contextmanager
 def tracing(tracer: Tracer | None = None) -> Iterator[Tracer]:
-    """Install ``tracer`` (or a fresh one) as the scoped tracer."""
+    """Install ``tracer`` (or a fresh one) for every thread of the process
+    until the block ends (the one installed before comes back then), and
+    lift a :func:`disabled` mask in this context.  Install from one thread
+    at a time."""
+    global _INSTALLED
     tracer = tracer if tracer is not None else Tracer()
-    token = _ACTIVE.set(tracer)
+    prev, _INSTALLED = _INSTALLED, tracer
+    token = _MASKED.set(False)
     try:
         yield tracer
     finally:
-        _ACTIVE.reset(token)
+        _MASKED.reset(token)
+        _INSTALLED = prev
 
 
 @contextmanager
 def disabled() -> Iterator[None]:
-    """Force tracing off in this scope, masking even ``REPRO_AP_TRACE=1``
-    (overhead benchmarking; parity tests)."""
-    token = _ACTIVE.set(_DISABLED)
+    """Mask the installed tracer in this context (its thread, or the
+    contexts copied from it); other threads keep recording."""
+    token = _MASKED.set(True)
     try:
         yield
     finally:
-        _ACTIVE.reset(token)
+        _MASKED.reset(token)
 
 
 # ---------------------------------------------------------------------------
@@ -524,9 +556,9 @@ def disabled() -> Iterator[None]:
 # ---------------------------------------------------------------------------
 
 def span(name: str, cat: str = "host", track: str = "host", **args):
-    """Open a span on the active tracer, or a shared no-op when off."""
-    tr = current_tracer()
-    if tr is None:
+    """Open a span on the installed tracer, or a shared no-op when off."""
+    tr = _INSTALLED
+    if tr is None or _MASKED.get():
         return _NULL_SPAN
     return tr.span(name, cat=cat, track=track, **args)
 
@@ -571,18 +603,18 @@ def traced_compile(cache_name: str, cached_fn, *args, _label: str = "",
     name = f"compile:{_label or cache_name}"
     if tr is None:
         out = cached_fn(*args, **kw)
+        missed = cached_fn.cache_info().misses > misses0
     else:
         with tr.span(name, cat="compile") as sp:
             out = cached_fn(*args, **kw)
-            sp.set(cache="miss" if cached_fn.cache_info().misses > misses0
-                   else "hit")
-    missed = cached_fn.cache_info().misses > misses0
-    if tr is not None and not missed:
-        # a hit skipped the compile work — downgrade the ns-scale span to
-        # an instant so cache replays don't clutter the timeline
-        last = tr.events[-1]
-        if isinstance(last, SpanRecord) and last.name == name:
-            tr.events.pop()
+            missed = cached_fn.cache_info().misses > misses0
+            sp.set(cache="miss" if missed else "hit")
+            if not missed:
+                # a hit skipped the compile work — an instant in place of
+                # the ns-scale span, so cache replays don't clutter the
+                # timeline
+                sp.drop()
+        if not missed:
             tr.instant(f"compile_hit:{_label or cache_name}", cat="compile",
                        cache=cache_name)
     get_registry().counter(

@@ -50,10 +50,19 @@ hang.
 
 Threads: each request of a merged wave steps in a worker thread, which
 starts with empty contextvars and its own grad mode and current device, so
-it enters ``trace.disabled()``, the engine's device, ``ap_serving`` and
-its ``ap_request_scope`` itself.  Only the wave's leader launches the
-merged graph's program kernels, on the device's current stream; the
-dispatcher reads the kernels' launch counts after the joins.
+it enters the engine's device, ``ap_serving`` and its ``ap_request_scope``
+itself.  Only the wave's leader launches the merged graph's program
+kernels, on the device's current stream; the dispatcher reads the kernels'
+launch counts after the joins.
+
+Tracing: the dispatcher and the workers record into the process's
+installed tracer (:func:`~repro_torch.apc.trace.tracing`), each thread on
+its own span stack.  A wave is ``serve.wave`` on the dispatcher, with its
+pre-wave ``serve.checkpoint`` of each request inside; between waves the
+dispatcher's ``serve.admit`` and ``serve.retire`` (a finished request's
+``ap.sink_flush`` inside); on a worker, the request's ``serve.step``, and
+inside it each wait at the rendezvous (``serve.wave_wait``) and, on the
+leader, ``serve.wave_merge`` around the merged run.
 
 On a named mesh (``engine.mesh`` a ``DeviceMesh``; one process per rank,
 each with its own server, every rank submitting the same requests in the
@@ -207,7 +216,8 @@ class WaveMerger:
         """With ``ordered``, wait until it is ``slot``'s turn."""
         if not self._ordered:
             return
-        with self._cv:
+        with trace.span("serve.wave_wait", cat="serve", slot=slot,
+                        at="turn"), self._cv:
             self._cv.wait_for(lambda: self._turn == slot or self._aborted)
             if self._turn != slot:
                 raise WaveAborted(f"slot {slot}'s turn never came")
@@ -247,16 +257,23 @@ class WaveMerger:
                               f"peer's step ended (out of cadence)")
         self.leave(slot)
         try:
-            if self._barrier.wait() == 0:        # all deposited; 0 leads
+            with trace.span("serve.wave_wait", cat="serve", slot=slot,
+                            at="deposit"):
+                leader = self._barrier.wait() == 0   # all deposited
+            if leader:
                 with self._cv:
                     self._arrived = 0
                 try:
-                    self._merge_and_run(ctx)
+                    with trace.span("serve.wave_merge", cat="serve",
+                                    n_slots=self.n_slots):
+                        self._merge_and_run(ctx)
                 except BaseException as e:       # peers must not hang
                     self._run_error = e
                 with self._cv:
                     self._turn = 0
-            self._barrier.wait()                 # results ready
+            with trace.span("serve.wave_wait", cat="serve", slot=slot,
+                            at="results"):
+                self._barrier.wait()             # results ready
         except threading.BrokenBarrierError as e:
             raise WaveAborted("wave rendezvous broke") from e
         self.enter(slot)
@@ -542,7 +559,8 @@ class BatchServer:
                     self._drain_submissions(
                         block=not (self._active or self._pending),
                         timeout=None if order is None else order.heartbeat)
-                    decisions = self._admit(reg)
+                    with trace.span("serve.admit", cat="serve"):
+                        decisions = self._admit(reg)
                     stop = (not self._active and self.queue.closed
                             and self.queue.qsize() == 0
                             and not self._pending)
@@ -557,7 +575,8 @@ class BatchServer:
                     if not self._active:
                         continue
                 self._run_wave(reg)
-                self._retire(reg)
+                with trace.span("serve.retire", cat="serve"):
+                    self._retire(reg)
         finally:
             # normal drain leaves nothing behind; a crashed dispatcher
             # must not strand queued/active handles on never-set events
@@ -654,6 +673,7 @@ class BatchServer:
         except Exception as e:               # bad request: fail just it
             h._finish(error=e)
             return
+        req.seq = h.seq
         self._active.append(_Active(h, req, sink))
         self.n_admitted += 1
         reg.counter("serve.admitted").inc()
@@ -728,8 +748,12 @@ class BatchServer:
                 # see WaveAborted mid-step —
                 # these snapshots are what lets them roll back and re-run
                 # solo instead of dying with the poison request
-                ckpts = [(act.request.checkpoint(),
-                          act.sink.checkpoint()) for act in stepping]
+                ckpts = []
+                for act in stepping:
+                    with trace.span("serve.checkpoint", cat="serve",
+                                    request=act.handle.seq):
+                        ckpts.append((act.request.checkpoint(),
+                                      act.sink.checkpoint()))
                 threads = [threading.Thread(
                     target=self._step_merged,
                     args=(act, ctx, merger, slot),
@@ -751,10 +775,6 @@ class BatchServer:
             wave_ms, inflight=len(stepping), queued=len(self._pending),
             bank_peak_w=merger.last_wave_peak_w if merger is not None
             else None)
-        for act in stepping:
-            if act.error is None and \
-                    act.request.pos > act.request.s_prompt:
-                reg.histogram("serve.decode_step_ms").observe(wave_ms)
         self.n_waves += 1
 
     def _agree(self, stepping) -> None:
@@ -823,11 +843,9 @@ class BatchServer:
             merger.bind(slot)
             merger.enter(slot)
             # worker threads start with a fresh context: enter the device
-            # and the AP hook themselves, route stats into this request's
-            # sink, and silence the (thread-unsafe) tracer — the dispatcher
-            # emits the wave/request spans single-threaded
-            with trace.disabled(), self.engine.device_scope(), \
-                    ap_serving(ctx), \
+            # and the AP hook themselves, and route stats into this
+            # request's sink
+            with self.engine.device_scope(), ap_serving(ctx), \
                     ap_request_scope(act.sink, merger):
                 act.request.step()
         except BaseException as e:
@@ -848,7 +866,9 @@ class BatchServer:
             elif act.request.done:
                 rep = None
                 if act.sink is not None and act.sink.n_graphs > 0:
-                    act.sink.flush()        # settle deferred counters
+                    with trace.span("ap.sink_flush", cat="serve",
+                                    request=act.handle.seq):
+                        act.sink.flush()    # settle deferred counters
                     rep = act.sink.report()
                     pool = self.engine.ap_ctx.runtime.pool
                     rep["n_arrays_total"] = getattr(

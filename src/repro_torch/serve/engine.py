@@ -92,7 +92,12 @@ class Request:
 
     Total model steps: ``s_prompt + n_new - 1`` for ``n_new >= 1``, zero
     for ``n_new == 0``.
+
+    ``seq``, set by a server that numbers its requests, tags the request's
+    trace spans (``request``).
     """
+
+    seq: int | None = None
 
     def __init__(self, engine: "Engine", prompts: np.ndarray, n_new: int,
                  cross_embeds=None):
@@ -149,16 +154,21 @@ class Request:
         self.out = list(ck["out"])
 
     def step(self) -> bool:
-        """Advance one model step (+ any sampling it unlocks); True when
-        the request has produced all ``n_new`` tokens."""
+        """Advance one model step (+ any sampling it unlocks), as one
+        ``serve.step`` span; True when the request has produced all
+        ``n_new`` tokens."""
         if self.done:
             raise RuntimeError("step() on a finished request")
-        if self.pos < self.s_prompt:
-            self.prefill_step()
-            if self.pos == self.s_prompt:
-                self.sample_first()
-        else:
-            self.decode_step()
+        prefill = self.pos < self.s_prompt
+        with trace.span("serve.step", cat="serve",
+                        phase="prefill" if prefill else "decode",
+                        pos=self.pos, batch=self.b, request=self.seq):
+            if prefill:
+                self.prefill_step()
+                if self.pos == self.s_prompt:
+                    self.sample_first()
+            else:
+                self.decode_step()
         return self.done
 
     def prefill_step(self) -> None:
@@ -185,11 +195,10 @@ class Request:
         if j < 0 or self.tok is None:
             raise RuntimeError("decode_step() before prefill + first sample")
         eng = self.engine
-        with trace.span(f"decode{j}", cat="serve", step=j):
-            self.logits, self.cache = eng._step(eng.params, self.cache,
-                                                self.tok, self.pos)
-            self.tok = eng._sample(self.logits, j + 1)
-            self.out.append(self.tok.cpu().numpy().astype(np.int32))
+        self.logits, self.cache = eng._step(eng.params, self.cache,
+                                            self.tok, self.pos)
+        self.tok = eng._sample(self.logits, j + 1)
+        self.out.append(self.tok.cpu().numpy().astype(np.int32))
         self.pos += 1
         self.n_model_steps += 1
 
@@ -231,7 +240,7 @@ class Engine:
         else:
             self.monitor = None
         # host-measured latency breakdown of the last generate() request
-        # (always recorded; independent of REPRO_AP_TRACE)
+        # (always recorded, traced or not)
         self.last_latency: dict | None = None
         self._trace_mark = 0           # attribution slice of last request
 
@@ -314,7 +323,7 @@ class Engine:
                 t_sample = time.perf_counter()
                 for _ in range(n_decode):
                     t0 = time.perf_counter()
-                    req.decode_step()      # appends -> token is host-synced
+                    req.step()             # a decode step, host-synced
                     reg.histogram("serve.decode_step_ms").observe(
                         1e3 * (time.perf_counter() - t0))
                 t_decode = time.perf_counter()

@@ -828,3 +828,37 @@ def test_current_ap_context_none_while_capturing(dev):
     assert seen["before"] is ctx and seen["after"] is ctx
     assert seen["capturing"] is None
     assert float(y.sum()) == 8.0
+
+
+def test_program_spans_on_the_profilers_clock(dev):
+    """A program span around a kernel launch and a synchronize, mapped to
+    epoch ns (``Tracer.epoch_ns``), holds that kernel's ``torch.profiler``
+    interval: each end of the span within 50 us of the kernel's."""
+    from repro_torch.apc import trace
+    slack, n = 50_000, 5
+    x = torch.randn(2048, 2048, device=dev)
+    torch.mm(x, x)
+    torch.cuda.synchronize(dev)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with trace.tracing() as tr:
+        prof.start()
+        for i in range(n + 1):           # the first launch is not timed
+            torch.cuda.synchronize(dev)
+            with trace.span("launch", i=i):
+                torch.mm(x, x)
+                torch.cuda.synchronize(dev)
+        prof.stop()
+    kernels = sorted((e.start_ns(), e.end_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if str(e.device_type()).endswith("CUDA"))
+    per = len(kernels) // (n + 1)
+    assert per >= 1 and len(kernels) == per * (n + 1)
+    spans = sorted((e for e in tr.events if e.name == "launch"),
+                   key=lambda e: e.args["i"])
+    for i, rec in enumerate(spans[1:], start=1):
+        start, end = tr.epoch_ns(rec)
+        mine = kernels[i * per:(i + 1) * per]
+        k0, k1 = mine[0][0], max(e for _, e in mine)
+        assert -slack <= k0 - start <= slack, (i, k0 - start)
+        assert -slack <= end - k1 <= slack, (i, end - k1)
