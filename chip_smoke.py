@@ -19,7 +19,14 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
    dtypes on the tensor cores, integers up to 2^19 among them; and both
    kernels, routed or not, at qwen2-72b's w1 (K = 8192, N = 29568, M = 1
    and 16), in both dtypes within the same tolerances and bit-identical on
-   integer activations.
+   integer activations.  The decode-attention kernel against its plain
+   version (fp32, valid slots only, no repeated kv heads) in bf16 at
+   qwen2-72b's heads (64 on 8, head 128), at the shapes phases 3d and 3h
+   give it (qwen3-0.6b's 16 heads on 8, head 128, at their batches and
+   cache length), and odd shapes (a single
+   sequence, so the slots split; head 96 and 256; every head its own kv
+   head), at the cache's first, middle and last positions: within one bf16
+   ulp, taken at no less than 1/256 of each head's largest output.
 3. The main paths at full size, each with every kernel's launch count set
    to 0 just before it and read just after; each fails if a kernel of the
    path was not launched.
@@ -161,7 +168,13 @@ Run from the root of a checkout with one card: ``python3 chip_smoke.py``.
    ``tap_ripple_add`` (which builds the schedule at each call, as callers
    do) beside the program kernel, counters off, on the same schedule.  The
    matmul and schedule-kernel rows also give the device's time alone: a
-   CUDA graph of 20 calls, replayed.
+   CUDA graph of 20 calls, replayed.  The decode-attention kernel at
+   qwen2-72b's batch decode (128 sequences, 64 heads on 8, head 128, a
+   512-slot bf16 cache) at positions 255 and 511, beside its byte bound
+   (the valid K and V slots, q and the output, once), its plain version,
+   the einsum path it replaces, and, timed only,
+   ``scaled_dot_product_attention(enable_gqa=True)`` on the same bf16
+   inputs: a yardstick, never on the path.
 
 Prints the kernels line (one JSON object) and the card's ``nvidia-smi``
 name and power limit before the last line, which is
@@ -342,6 +355,23 @@ MATMUL_TIMES = tuple(("qwen3-0.6b", "w1", *QWEN3_06B, m)
 MATMUL_LINE = {"ternary_matmul": ("qwen3-0.6b", "w1", 1, "float32"),
                "ternary_matmul_tc": ("qwen3-0.6b", "w1", 2048, "bfloat16")}
 
+# decode attention: qwen2-72b's batch decode (B, H, Hk, hd, cache slots)
+# at two positions; the check's shapes beside it: that one, the shapes
+# phases 3d and 3h give the kernel (qwen3-0.6b's 16 heads on 8 at batch 4,
+# 16 and the wave's 2, SERVE_SHAPE's cache), and odd ones; each at the
+# first slot, half and all of the cache, and the written slots of those
+# phases' first and last decode steps
+ATTN_SHAPE = (128, 64, 8, 128, 512)
+ATTN_POSITIONS = (255, 511)
+ATTN_CHECK_SHAPES = ((128, 64, 8, 128, 512),
+                     *((b, 16, 8, 128, SERVE_SHAPE[3])
+                       for b in dict.fromkeys((SERVE_SHAPE[0],
+                                               *MESH_SERVE_BATCHES,
+                                               MESH_WAVE[0]))),
+                     (1, 64, 8, 128, 512), (8, 16, 8, 96, 300),
+                     (4, 32, 32, 256, 70))
+ATTN_CHECK_SLOTS = (SERVE_SHAPE[1] + 1, SERVE_SHAPE[1] + SERVE_SHAPE[2] - 1)
+
 KERNELS = {
     "tap_run_program": {
         "source": "src/repro_torch/kernels/tap_pass/csrc/tap_program.cu",
@@ -357,6 +387,11 @@ KERNELS = {
         "source": "src/repro_torch/kernels/ternary_matmul/csrc/"
                   "ternary_matmul_tc.cu",
         "replaces": "src/repro/kernels/ternary_matmul/kernel.py:75"},
+    "decode_attention": {
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "none: the JAX package's attend_decode "
+                    "(src/repro/models/attention.py) is plain jnp"},
 }
 
 
@@ -3388,6 +3423,120 @@ def mlp_share(model_res: dict, times: list[dict], card: str, log) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Decode attention: against the plain version, and its times
+# ---------------------------------------------------------------------------
+
+def attention_case(b: int, h: int, hk: int, hd: int, length: int, seed: int,
+                   dev):
+    """q [b, 1, h, hd] and a bf16 cache of ``length`` slots, drawn on the
+    card from ``seed``."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev)
+    k = torch.randn((b, length, hk, hd), generator=gen, device=dev)
+    v = torch.randn((b, length, hk, hd), generator=gen, device=dev)
+    return (q.to(torch.bfloat16), k.to(torch.bfloat16),
+            v.to(torch.bfloat16))
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| in bf16 ulps of each element, the ulp taken
+    at no less than 1/256 of its head's largest |want| (two fp32 sums in
+    another order differ by about 1e-6 of the row there)."""
+    import torch
+    want = want.float()
+    mag = torch.maximum(want.abs(),
+                        want.abs().amax(dim=-1, keepdim=True) * 2.0 ** -8)
+    _, e = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(mag), e - 8)
+    return float(((got.float() - want).abs() / ulp).max())
+
+
+def phase_attention_vs_plain(dev, log) -> float:
+    """The decode-attention kernel against its plain version, in bf16 at
+    ATTN_CHECK_SHAPES with 1, half and all of the slots written, and
+    ATTN_CHECK_SLOTS; returns the largest absolute difference.  Each must
+    lie within one bf16 ulp (``bf16_ulps``)."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    worst = 0.0
+    for i, (b, h, hk, hd, length) in enumerate(ATTN_CHECK_SHAPES):
+        q, k, v = attention_case(b, h, hk, hd, length, SEED + 40 + i, dev)
+        for n_valid in sorted({1, length // 2, length,
+                               *(n for n in ATTN_CHECK_SLOTS
+                                 if n <= length)}):
+            got = dk.decode_attention(q, k, v, n_valid)
+            want = decode_attention_ref(q, k, v, n_valid)
+            ulps = bf16_ulps(got, want)
+            err = float((got.float() - want.float()).abs().max())
+            worst = max(worst, err)
+            log(f"  decode_attention B={b} H={h} Hk={hk} hd={hd} "
+                f"slots {n_valid}/{length}: max |diff| {err:.3g}, "
+                f"{ulps:.3f} bf16 ulps")
+            check(ulps <= 1.0, f"decode_attention B={b} H={h} Hk={hk} "
+                               f"hd={hd} n_valid={n_valid}: {ulps} ulps")
+    return worst
+
+
+def phase_attention_times(dev, card: str, log) -> list[dict]:
+    """The decode-attention kernel at ATTN_SHAPE and ATTN_POSITIONS: through
+    its wrapper and as device time (a CUDA graph), beside its byte bound,
+    its plain version, the einsum path it replaces and the library's
+    ``scaled_dot_product_attention(enable_gqa=True)`` on the same bf16
+    inputs (timed only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.attention import _attend_decode_einsum
+
+    b, h, hk, hd, length = ATTN_SHAPE
+    q, k, v = attention_case(b, h, hk, hd, length, SEED + 50, dev)
+    rows = []
+    for pos in ATTN_POSITIONS:
+        n = pos + 1
+
+        def run_kernel():
+            return dk.decode_attention(q, k, v, n)
+        qt, kt, vt = (q.transpose(1, 2), k[:, :n].transpose(1, 2),
+                      v[:, :n].transpose(1, 2))
+
+        def run_library():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True)
+        ms = event_ms(run_kernel, reps=5, inner=20)
+        device_ms = graph_ms(run_kernel)
+        plain_ms = event_ms(lambda: decode_attention_ref(q, k, v, n),
+                            reps=3, inner=1)
+        einsum_ms = event_ms(lambda: _attend_decode_einsum(
+            q, k, v, pos, False), reps=3, inner=1)
+        library_ms = event_ms(run_library, reps=5, inner=20)
+        library_device_ms = graph_ms(run_library)
+        n_bytes = 2 * b * n * hk * hd * 2 + 2 * b * h * hd * 2
+        bnd = bound(n_bytes, 4 * b * h * n * hd, PEAK_FP32_FMA_FLOP_PER_S)
+        row = {"kernel": "decode_attention", "b": b, "h": h, "hk": hk,
+               "hd": hd, "slots": length, "pos": pos, "ms": ms,
+               "device_ms": device_ms, "plain_ms": plain_ms,
+               "einsum_ms": einsum_ms, "library_ms": library_ms,
+               "library_device_ms": library_device_ms,
+               "splits": dk.split_shape(b * hk, -(-n // dk.TILE),
+                                        torch.cuda.get_device_properties(
+                                            dev).multi_processor_count),
+               **bnd, "card": card}
+        rows.append(row)
+        log(f"  time decode_attention B={b} H={h} Hk={hk} hd={hd} "
+            f"pos={pos}: kernel {ms:.4f} ms (device {device_ms:.4f}), "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
+            f"{100 * bnd['bound_ms'] / device_ms:.1f} % of it), plain "
+            f"{plain_ms:.3f} ms, einsum path {einsum_ms:.3f} ms, library "
+            f"{library_ms:.4f} ms (device {library_device_ms:.4f}), card "
+            f"{card}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3408,6 +3557,7 @@ def main() -> int:
     try:
         from repro_torch.kernels import cuda_lib
         from repro_torch.kernels.tap_pass import kernel
+        from repro_torch.kernels.decode_attention import kernel as dk
         from repro_torch.kernels.ternary_matmul import kernel as tk
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}",
@@ -3420,7 +3570,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     report: dict = {"card": card}
-    counters = (kernel.launch_counts, tk.launch_counts)
+    counters = (kernel.launch_counts, tk.launch_counts, dk.launch_counts)
 
     def log(msg: str) -> None:
         print(msg, flush=True)
@@ -3469,6 +3619,7 @@ def main() -> int:
         report["matmul_vs_plain"] = phase_matmul_vs_plain(dev, log)
         for name, errs in report["matmul_vs_plain"].items():
             max_err[name] = max(errs.values())
+        max_err["decode_attention"] = phase_attention_vs_plain(dev, log)
 
         log("[main path: AP arithmetic]")
         report["main_path"] = main_path(
@@ -3487,7 +3638,7 @@ def main() -> int:
         report["model_path"] = main_path(
             "qwen3-0.6b model",
             lambda dev, log: phase_model_path(dev, card, log),
-            ("ternary_matmul", "ternary_matmul_tc"))
+            ("ternary_matmul", "ternary_matmul_tc", "decode_attention"))
         log(f"  phase 3d took {report['model_path']['seconds']:.3f} s")
         log("[main path: qwen3-0.6b at full width and depth, AP serving]")
         report["ap_serve_path"] = main_path(
@@ -3509,7 +3660,8 @@ def main() -> int:
         report["mesh_serve_path"] = main_path(
             "mesh serving and examples",
             lambda dev, log: phase_mesh_serve_path(dev, card, log),
-            ("ternary_matmul", "ternary_matmul_tc", "tap_run_program"))
+            ("ternary_matmul", "ternary_matmul_tc", "tap_run_program",
+             "decode_attention"))
         log(f"  phase 3h took {report['mesh_serve_path']['seconds']:.3f} s")
         launches = {k: sum(report[p]["launches"][k] for p in (
             "main_path", "matmul_path", "pool_path", "model_path",
@@ -3519,6 +3671,7 @@ def main() -> int:
         log("[times]")
         report["times"] = phase_times(dev, card, log)
         report["times"] += phase_matmul_times(dev, card, log)
+        report["times"] += phase_attention_times(dev, card, log)
         report["model_path"]["mlp_share"] = mlp_share(
             report["model_path"], report["times"], card, log)
     except CheckFailed as e:
@@ -3526,6 +3679,9 @@ def main() -> int:
         return 1
 
     def line_row(name):
+        if name == "decode_attention":
+            return next(x for x in report["times"] if x["kernel"] == name
+                        and x["pos"] == ATTN_POSITIONS[-1])
         if name in MATMUL_LINE:
             model, product, m, dtype = MATMUL_LINE[name]
             return next(x for x in report["times"] if x["kernel"] == name

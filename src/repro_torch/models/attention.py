@@ -5,16 +5,20 @@ Three execution paths, as the reference's:
     Python loop over q blocks and k blocks) so a long prefill never
     materializes an [S, S] score tensor.
   * ``attend_decode`` — one new token against a KV cache (ring buffer for
-    sliding-window layers, linear buffer for global layers), in fp32.
+    sliding-window layers, linear buffer for global layers), in fp32: on
+    the card, bf16 or fp16 queries read the cache as it lies through the
+    decode-attention kernel; every other call takes the einsum path.
   * dense path for short sequences (S <= 512) where blocking is overhead.
 
 Weights layout: wq [d, H*hd], wk/wv [d, Hk*hd], wo [H*hd, d].  The
-reference has no Pallas kernel here, so every path is plain torch.
+reference has no Pallas kernel here, so every other path is plain torch.
 """
 from __future__ import annotations
 
 import torch
 
+from ..apc.metrics import get_registry
+from ..kernels.decode_attention import kernel as decode_kernel
 from .common import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
@@ -174,8 +178,27 @@ def decode_update_cache(cache: dict, k_new: torch.Tensor,
 
 
 def attend_decode(q, cache: dict, pos: int, ring: bool) -> torch.Tensor:
-    """q [B,1,H,hd] against the cache, in fp32; masks unwritten slots."""
+    """q [B,1,H,hd] against the cache, in fp32; masks unwritten slots.
+
+    The cache's first ``min(pos + 1, length)`` slots are the written ones,
+    ring or linear.  A call the decode-attention kernel takes
+    (``kernels.decode_attention.supports``: bf16 or fp16 q on the card, the
+    cache in its dtype) reads only those, each once for all of its kv
+    head's query heads, and counts in the kernel's ``launch_counts``; every
+    other call (fp32 queries, the AP route's among them, and the CPU) takes
+    the einsum path, which expands the kv heads and masks the rest, and
+    counts in the registry's ``attn.decode.einsum``."""
     k, v = cache["k"], cache["v"]
+    length = k.shape[1]
+    if decode_kernel.supports(q, k, v):
+        return decode_kernel.decode_attention(q, k, v, min(pos + 1, length))
+    get_registry().counter("attn.decode.einsum").inc()
+    return _attend_decode_einsum(q, k, v, pos, ring)
+
+
+def _attend_decode_einsum(q, k, v, pos: int, ring: bool) -> torch.Tensor:
+    """The einsum path: the kv heads repeated to q's, K and V in fp32 over
+    every slot, the unwritten ones masked."""
     length = k.shape[1]
     n_rep = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
