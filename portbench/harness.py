@@ -5,9 +5,14 @@ Everything that belongs to one cell, configuration or metric is a file
 that this module finds by its name in ``BENCHMARK.json``:
 
 - ``portbench/configs/<config>.json``: the model (the port's
-  ``ModelConfig`` fields under ``model``) and how it is served (``serve``);
+  ``ModelConfig`` fields under ``model``, its ``family`` among them) and
+  how it is served (``serve``);
+- ``portbench/families/<family>.py``: the port's configuration, the
+  seeded weights, the plain reference and the AP graph count of a family
+  of models (:mod:`portbench.families`);
 - ``portbench/workloads/<cell>.json``: the traffic driver, its parameters,
-  the warm-up, the traced window and the check's sample and limits;
+  the warm-up, the traced window (``program_trace``: with the program's
+  own spans and counters) and the check's sample and limits;
 - ``portbench/drivers/<driver>.py``: ``run(system, traffic, seed, seconds,
   vocab)``;
 - ``portbench/metrics/<metric>.py``: ``read(data) -> float | None`` for
@@ -19,6 +24,7 @@ lazily, and never JAX or the JAX package.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import gc
 import importlib.util
 import json
@@ -51,6 +57,8 @@ class Spec:
         self.config = json.loads((self.root / cfg["file"]).read_text())
         self.model = self.config["model"]
         self.serve = self.config["serve"]
+        self.family = self.module("families",
+                                  self.model.get("family", "dense"))
 
         def mine(m):
             return name in m.get("workloads", [name])
@@ -128,12 +136,11 @@ class System:
     its ``APServeContext``) behind a ``BatchServer``."""
 
     def __init__(self, spec: Spec, seed: int, device: torch.device):
-        from repro_torch.configs.base import ModelConfig
         from repro_torch.models.model import cast_params
         from repro_torch.models.quant import quantize_model_params
         from repro_torch.serve import AdmissionCfg, BatchServer, ServeCfg
 
-        from .weights import DTYPES, program_tree
+        from .weights import DTYPES
         self.spec, self.device = spec, device
         phases = {}
         t = time.perf_counter()
@@ -145,9 +152,9 @@ class System:
         phases["kernels"] = time.perf_counter() - t
         t = time.perf_counter()
         model = spec.model
-        self.cfg = ModelConfig(**model)
-        tree = program_tree(model, seed, device,
-                            DTYPES[model["param_dtype"]])
+        self.cfg = spec.family.model_config(model)
+        tree = spec.family.program_tree(model, seed, device,
+                                        DTYPES[model["param_dtype"]])
         params = cast_params(self.cfg, quantize_model_params(tree))
         del tree
         gc.collect()
@@ -329,6 +336,30 @@ def _idle_by_activity(gaps, spans) -> list:
     return sorted(total.items(), key=lambda kv: -kv[1])
 
 
+def _program_counters() -> dict:
+    """The program's registry counters (its only whole-number
+    instruments: gauges read as floats, histograms as dicts)."""
+    from repro_torch.apc.metrics import get_registry
+    return {k: v for k, v in get_registry().snapshot().items()
+            if type(v) is int}
+
+
+def _program_spans(tracer, stop_ns: int) -> list[dict]:
+    """The program's host spans on the profiler's clock, those begun
+    before ``stop_ns`` and cut there, in order of their starts."""
+    from repro_torch.apc.trace import HOST_PID, SpanRecord
+    out = []
+    for r in list(tracer.events):
+        if not isinstance(r, SpanRecord) or r.pid != HOST_PID:
+            continue
+        start, end = tracer.epoch_ns(r)
+        if start < stop_ns:
+            out.append({"name": r.name, "cat": r.cat, "thread": r.thread,
+                        "parent": r.parent, "args": r.args,
+                        "start_ns": start, "end_ns": min(end, stop_ns)})
+    return sorted(out, key=lambda sp: sp["start_ns"])
+
+
 # ---------------------------------------------------------------------------
 # One run
 # ---------------------------------------------------------------------------
@@ -386,6 +417,8 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool,
                               for k, v in system.phases.items()))
     rec = None
     prof = None
+    tracer = None
+    program_scope = contextlib.ExitStack()
     if trace:
         from repro_torch.kernels.tap_pass.kernel import launch_counts as tl
         from repro_torch.kernels.ternary_matmul.kernel import \
@@ -397,6 +430,12 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool,
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CUDA if device.type == "cuda"
             else torch.profiler.ProfilerActivity.CPU])
+        if cell.get("program_trace"):
+            # the program's own spans and counters, for the cells that ask:
+            # its tracer costs the AP route's host time
+            from repro_torch.apc.trace import Tracer, tracing
+            counters0 = _program_counters()
+            tracer = program_scope.enter_context(tracing(Tracer()))
         prof.start()
         seconds = float(cell["trace_seconds"])
     setup_s = time.perf_counter() - t_start
@@ -405,8 +444,15 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool,
     data = _window_data(spec, window)
     data["setup_s"] = setup_s
     if trace:
+        stop_ns = time.time_ns()
         prof.stop()
+        program_scope.close()
         rec.uninstall()
+        if tracer is not None:
+            data["program_spans"] = _program_spans(tracer, stop_ns)
+            data["program_counters"] = {
+                k: v - counters0.get(k, 0)
+                for k, v in _program_counters().items()}
         kernels = _device_events(prof)
         busy_s, gaps = _busy_and_gaps(kernels)
         data.update(
@@ -440,10 +486,6 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool,
                                  if device.type == "cuda" else 0)}
     if trace:
         dev.update(busy_s=data["busy_s"], window_s=data["window_s"])
-    bad = _forbidden_modules()
-    if bad:
-        log(f"forbidden modules loaded: {', '.join(bad)}")
-        return None
     # the check: the program's state freed first, the reference after
     failed = sum(r["error"] is not None for r in records)
     samples = _sample(spec, seed, records)
@@ -453,8 +495,9 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
     from .reference.check import read_gaps
     t = time.perf_counter()
-    read = read_gaps(spec.model, spec.serve, seed, device, samples,
-                     control=control, cache_len=cell["traffic"]["max_len"])
+    read = read_gaps(spec.family, spec.model, spec.serve, seed, device,
+                     samples, control=control,
+                     cache_len=cell["traffic"]["max_len"])
     log(f"check: {read['tokens']} served tokens compared in "
         f"{time.perf_counter() - t:.3f} s; widest gap {read['logit_gap']!r}, "
         f"mean gap {read['mean_gap']!r}, mismatch {read['mismatch']!r}")
@@ -474,12 +517,12 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool,
     if spec.serve["route"] == "ap":
         reports = [r["ap_report"] or {} for r in records
                    if r["error"] is None]
-        # every step of every request runs each MLP as two AP graphs
-        # (gate and up, then down): a route that skips the simulator
-        # gives the same logits, so the graphs are counted too
+        # every step of every request runs the family's AP graphs: a
+        # route that skips the simulator gives the same logits, so the
+        # graphs are counted too
         tr = cell["traffic"]
-        want = 2 * spec.model["n_layers"] * (tr["prompt_len"]
-                                             + tr["new_tokens"] - 1)
+        want = spec.family.ap_graphs_per_step(spec.model) * (
+            tr["prompt_len"] + tr["new_tokens"] - 1)
         off = max((abs(rep.get("n_graphs", 0) - want) for rep in reports),
                   default=want)
         checks["ap_graphs_off"] = {"value": off, "limit": 0}
@@ -496,6 +539,11 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool,
         checks["ap_counters_off"] = {"value": off, "limit": 0}
         ok = ok and off == 0 and bool(reports)
     checks["failed_requests"] = {"value": failed, "limit": 0}
+    # once the window has closed and the family's reference has run
+    bad = _forbidden_modules()
+    if bad:
+        log(f"forbidden modules loaded: {', '.join(bad)}")
+        return None
     for name, c in checks.items():
         log(f"{name} {c['value']!r} limit {c['limit']!r}")
     out = {"correct": bool(ok), "attempted": len(records), "failed": failed,

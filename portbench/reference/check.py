@@ -8,17 +8,17 @@ gap over the sample is the number compared (``logit_gap``).  With
 the gap of the token it puts first is read at the same positions: the
 reading a control must fail.
 
-The reference makes its weights again from the seed (:mod:`..weights`),
-one layer at a time, and takes none of the program's.  Imports neither
-JAX nor the program.
+The reference makes its weights again from the seed, one layer at a time,
+and takes none of the program's: the configuration's family
+(:mod:`portbench.families`) gives the weights and the reference's
+forward passes.  Imports neither JAX nor the program.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..weights import DTYPES, layer_params, top_params
-from .model import logits, logits_stepwise
+from ..weights import DTYPES
 
 
 # rows of the float route's reference a pass: at qwen2-72b's widths 32
@@ -39,34 +39,37 @@ def _groups(serve: dict, samples: list) -> list:
             for i in range(0, len(prompts), CHUNK_ROWS)]
 
 
-def read_gaps(model: dict, serve: dict, seed: int, device, samples: list,
-              control: str | None = None, cache_len: int = 0) -> dict:
-    """``samples``: ``(prompts [B, S], served [B, N])`` int arrays, all of
-    one shape.  Returns ``logit_gap`` (widest), ``mean_gap``,
-    ``mismatch`` (share of served tokens that are not the reference's
-    first), ``tokens``, and with ``control`` the same three read at the
-    control's first tokens (``control_logit_gap``, ``control_mean_gap``,
-    ``control_mismatch``).  On the AP route the reference takes the
-    positions one at a time through a cache of ``cache_len`` slots
-    (:func:`.model.logits_stepwise`), elsewhere whole."""
+def read_gaps(family, model: dict, serve: dict, seed: int, device,
+              samples: list, control: str | None = None,
+              cache_len: int = 0) -> dict:
+    """``family``: the configuration's family module, which gives the
+    weights and the forward passes.  ``samples``: ``(prompts [B, S],
+    served [B, N])`` int arrays, all of one shape.  Returns ``logit_gap``
+    (widest), ``mean_gap``, ``mismatch`` (share of served tokens that are
+    not the reference's first), ``tokens``, and with ``control`` the same
+    three read at the control's first tokens (``control_logit_gap``,
+    ``control_mean_gap``, ``control_mismatch``).  On the AP route the
+    reference takes the positions one at a time through a cache of
+    ``cache_len`` slots (the family's ``logits_stepwise``), elsewhere
+    whole."""
     dtype = DTYPES[model.get("param_dtype", "float32")]
-    top = top_params(model, seed, device, dtype)
-    small = model["n_layers"] * model["d_model"] * model["d_ff"] < 2 ** 28
+    top = family.top_params(model, seed, device, dtype)
+    small = family.keeps_layer_weights(model)
     cache: dict = {}
 
     def layer_fn(i):
         if i in cache:
             return cache[i]
-        p = layer_params(model, seed, i, device, dtype)
+        p = family.layer_params(model, seed, i, device, dtype)
         if small:
             cache[i] = p
         return p
 
     if serve.get("route") == "ap":
         def forward(*a, **kw):
-            return logits_stepwise(*a, cache_len=cache_len, **kw)
+            return family.logits_stepwise(*a, cache_len=cache_len, **kw)
     else:
-        forward = logits
+        forward = family.logits
     out = {"logit_gap": 0.0, "mean_gap": 0.0, "mismatch": 0.0, "tokens": 0}
     if control:
         out["control_logit_gap"] = 0.0
