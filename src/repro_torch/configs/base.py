@@ -22,6 +22,12 @@ class MoECfg:
     capacity_factor: float = 1.25
     norm_topk: bool = True         # renormalize top-k gate values
     parallelism: str = "tp"        # "tp" (baseline) | "ep" (hillclimb)
+    # knobs of a configuration outside the registry, whose subclass makes
+    # them fields (granite_4_0_h_small.GraniteMoECfg): class attributes
+    # here, not fields, so every registered configuration stays the
+    # reference's field for field
+    shared_d_ff = 0                # width of a shared SwiGLU expert (0: none)
+    dropless = False               # capacity = the tokens: no pair dropped
 
 
 @dataclass(frozen=True)
@@ -32,6 +38,8 @@ class SSMCfg:
     n_groups: int = 1
     chunk: int = 256               # SSD chunk length
     conv_width: int = 4
+    conv_bias = False              # the conv's bias (class attribute, as
+    #                                MoECfg.shared_d_ff; GraniteSSMCfg's field)
 
 
 @dataclass(frozen=True)
@@ -85,6 +93,13 @@ class ModelConfig:
     # unrolled SSD chunk loop, unrolled layer stack) so XLA cost analysis
     # counts every iteration (while-loop bodies are otherwise counted once)
     probe_unroll: bool = False
+    # scalings of a configuration outside the registry, the identity here
+    # (class attributes, as MoECfg.shared_d_ff; granite_4_0_h_small's
+    # GraniteConfig makes them fields)
+    embedding_multiplier = 1.0     # embeddings times this
+    residual_multiplier = 1.0      # each sub-block's output times this
+    attention_multiplier = 0.0     # attention's score scale (0: hd ** -0.5)
+    logits_scaling = 1.0           # logits divided by this
 
     # -- derived -----------------------------------------------------------
     @property

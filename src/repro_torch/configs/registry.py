@@ -1,4 +1,10 @@
-"""Architecture registry: ``--arch <id>`` -> (config, smoke_config)."""
+"""Architecture registry: ``--arch <id>`` -> (config, smoke_config).
+
+The registry is the reference package's list, held equal to it id for id
+and field for field (``tests/test_torch_configs.py``).  A configuration
+the port serves beyond it (:mod:`.granite_4_0_h_small`, whose knobs are
+fields of subclasses the reference has not) lives in a module of its own
+and is not registered."""
 from __future__ import annotations
 
 from . import (gemma3_27b, jamba_v0_1_52b, mamba2_2_7b, moonshot_v1_16b_a3b,

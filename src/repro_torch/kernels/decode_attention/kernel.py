@@ -97,12 +97,13 @@ def _sm_count(index: int) -> int:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     n_valid: int) -> torch.Tensor:
-    """out [B, 1, H, hd] = softmax((q . k[:, :n_valid]) * hd**-0.5) @
+                     n_valid: int, scale: float | None = None
+                     ) -> torch.Tensor:
+    """out [B, 1, H, hd] = softmax((q . k[:, :n_valid]) * scale) @
     v[:, :n_valid] per query head, query head h reading kv head h // (H /
-    Hk), in fp32; out in q's dtype.  A ``ValueError`` if ``n_valid`` lies
-    outside the cache or the kernel does not take the call
-    (:func:`supports`)."""
+    Hk), in fp32; out in q's dtype.  ``scale`` None is ``hd ** -0.5``.  A
+    ``ValueError`` if ``n_valid`` lies outside the cache or the kernel
+    does not take the call (:func:`supports`)."""
     if not 1 <= n_valid <= k.shape[1]:
         raise ValueError(f"decode_attention: n_valid={n_valid} outside 1.."
                          f"{k.shape[1]}")
@@ -113,6 +114,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{tuple(k.shape)} strides {k.stride()} on {k.device}, v "
             f"{v.dtype} {tuple(v.shape)} strides {v.stride()}")
     b, _, h, hd = q.shape
+    if scale is None:
+        scale = hd ** -0.5
     hk = k.shape[2]
     group = group_size(h // hk)
     ctas = b * hk * -(-(h // hk) // group)
@@ -130,7 +133,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     out.data_ptr(), 0 if part is None else part.data_ptr(),
                     *k.stride()[:3], *v.stride()[:3], b, h, hk, hd,
-                    n_valid, hd ** -0.5, _DTYPES[q.dtype], group, n_split,
+                    n_valid, scale, _DTYPES[q.dtype], group, n_split,
                     per, stream)
     cuda_lib.check_status(err, "decode_attention")
     launch_counts["decode_attention"] += 1

@@ -92,11 +92,14 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
 # ---------------------------------------------------------------------------
 
 def attend_dense(q, k, v, causal: bool, window: int = 0,
-                 q_offset: int = 0) -> torch.Tensor:
-    """q [B,Sq,H,hd], k/v [B,Sk,Hk,hd] -> [B,Sq,H,hd]."""
+                 q_offset: int = 0, scale: float | None = None
+                 ) -> torch.Tensor:
+    """q [B,Sq,H,hd], k/v [B,Sk,Hk,hd] -> [B,Sq,H,hd]; scores scaled by
+    ``scale`` (None: hd ** -0.5)."""
     n_rep = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-    scale = q.shape[-1] ** -0.5
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     sq, sk = q.shape[1], k.shape[1]
     qpos = torch.arange(sq, device=q.device) + q_offset
@@ -112,9 +115,10 @@ def attend_dense(q, k, v, causal: bool, window: int = 0,
 # ---------------------------------------------------------------------------
 
 def attend_blockwise(q, k, v, causal: bool = True, window: int = 0,
-                     block_q: int = 1024, block_k: int = 1024
-                     ) -> torch.Tensor:
-    """Online-softmax attention; never materializes [Sq, Sk].
+                     block_q: int = 1024, block_k: int = 1024,
+                     scale: float | None = None) -> torch.Tensor:
+    """Online-softmax attention; never materializes [Sq, Sk].  Scores
+    scaled by ``scale`` (None: hd ** -0.5).
 
     Requires Sq % block_q == Sk % block_k == 0 (configs keep shapes aligned).
     """
@@ -125,7 +129,8 @@ def attend_blockwise(q, k, v, causal: bool = True, window: int = 0,
                          f"multiples of blocks {block_q} / {block_k}")
     n_rep = h // k.shape[2]
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-    scale = hd ** -0.5
+    if scale is None:
+        scale = hd ** -0.5
     dev = q.device
     outs = []
     for qi in range(sq // block_q):
@@ -177,8 +182,11 @@ def decode_update_cache(cache: dict, k_new: torch.Tensor,
     return cache
 
 
-def attend_decode(q, cache: dict, pos: int, ring: bool) -> torch.Tensor:
-    """q [B,1,H,hd] against the cache, in fp32; masks unwritten slots.
+def attend_decode(q, cache: dict, pos: int, ring: bool,
+                  scale: float | None = None) -> torch.Tensor:
+    """q [B,1,H,hd] against the cache, in fp32; masks unwritten slots;
+    scores scaled by ``scale`` (None: hd ** -0.5, as the kernel's own
+    default).
 
     The cache's first ``min(pos + 1, length)`` slots are the written ones,
     ring or linear.  A call the decode-attention kernel takes
@@ -191,18 +199,21 @@ def attend_decode(q, cache: dict, pos: int, ring: bool) -> torch.Tensor:
     k, v = cache["k"], cache["v"]
     length = k.shape[1]
     if decode_kernel.supports(q, k, v):
-        return decode_kernel.decode_attention(q, k, v, min(pos + 1, length))
+        return decode_kernel.decode_attention(q, k, v, min(pos + 1, length),
+                                              scale=scale)
     get_registry().counter("attn.decode.einsum").inc()
-    return _attend_decode_einsum(q, k, v, pos, ring)
+    return _attend_decode_einsum(q, k, v, pos, ring, scale)
 
 
-def _attend_decode_einsum(q, k, v, pos: int, ring: bool) -> torch.Tensor:
+def _attend_decode_einsum(q, k, v, pos: int, ring: bool,
+                          scale: float | None = None) -> torch.Tensor:
     """The einsum path: the kv heads repeated to q's, K and V in fp32 over
     every slot, the unwritten ones masked."""
     length = k.shape[1]
     n_rep = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-    scale = q.shape[-1] ** -0.5
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) * scale
     valid_len = min(pos + 1, length) if ring else pos + 1

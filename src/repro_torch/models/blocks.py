@@ -49,6 +49,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..apc import trace
 from ..configs.base import ModelConfig
 from . import attention as attn
 from . import mlp as mlp_mod
@@ -75,6 +76,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, mixer_kind: str,
             cfg.qk_norm, cfg.qkv_bias, dtype)
     if ffn_kind == "moe":
         p["moe"] = moe_mod.init_moe(gen, cfg.d_model, cfg.moe, dtype)
+        if cfg.moe.shared_d_ff:             # granite's shared expert
+            p["mlp"] = mlp_mod.init_mlp(gen, cfg.d_model,
+                                        cfg.moe.shared_d_ff, dtype)
     elif ffn_kind == "mlp":
         p["mlp"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
     else:                                   # "none": mixer-only block (mamba2)
@@ -93,13 +97,28 @@ def _rope_theta(cfg: ModelConfig, mixer_kind: str) -> float:
     return cfg.rope_theta
 
 
+def _attn_scale(cfg: ModelConfig) -> float | None:
+    """The score scale: ``attention_multiplier`` where the configuration
+    sets one, else None (the attention functions' ``hd ** -0.5``)."""
+    return cfg.attention_multiplier or None
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor, cfg: ModelConfig):
+    """x + y, the sub-block's output ``y`` first scaled by
+    ``residual_multiplier`` where it is not 1."""
+    if cfg.residual_multiplier != 1.0:
+        y = y * cfg.residual_multiplier
+    return x + y
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
 def _attention(pa, sa, h, cfg: ModelConfig, plan: Plan, positions, theta,
                causal: bool, window: int, tail: bool, kv_src=None,
-               use_rope: bool = True, dense: bool = False):
+               use_rope: bool = True, dense: bool = False,
+               scale: float | None = None):
     """Self-attention (cross-attention from ``kv_src``) on this rank's
     heads or batch slice; ``wo``'s partial product summed over "model"
     when the heads are split."""
@@ -158,9 +177,11 @@ def _attention(pa, sa, h, cfg: ModelConfig, plan: Plan, positions, theta,
     if bsplit:                               # this rank's slice of the batch
         q, k, v = (plan.mine(t, 0) for t in (q, k, v))
     if dense or s <= DENSE_ATTN_MAX:
-        o = attn.attend_dense(q, k, v, causal=causal, window=window)
+        o = attn.attend_dense(q, k, v, causal=causal, window=window,
+                              scale=scale)
     else:
-        o = attn.attend_blockwise(q, k, v, causal=causal, window=window)
+        o = attn.attend_blockwise(q, k, v, causal=causal, window=window,
+                                  scale=scale)
     if bsplit:
         o = GatherOutput.apply(o, plan.group(MODEL_AXIS), 0)
     wo = plan.full(pa["wo"], sa["wo"], gather_model=not heads)
@@ -206,11 +227,19 @@ def _mamba(pm, sm, h, cfg: ModelConfig, plan: Plan, tail: bool):
 
 
 def _ffn(p, sp, h, cfg: ModelConfig, plan: Plan, ffn_kind: str,
-         tail: bool = False):
-    if ffn_kind == "moe":
-        return moe_mod.moe_local(p["moe"], sp["moe"], h, cfg.moe, cfg.act,
-                                 plan)
-    return _mlp(p["mlp"], sp["mlp"], h, cfg, plan, tail)
+         tail: bool = False, layer: int = 0):
+    """The FFN sub-block; an MoE one as a ``model.moe`` span, its shared
+    expert (the block's ``mlp``, granite's) added to the routed experts'
+    output."""
+    if ffn_kind != "moe":
+        return _mlp(p["mlp"], sp["mlp"], h, cfg, plan, tail)
+    with trace.span("model.moe", cat="model", layer=layer,
+                    tokens=h.shape[0] * h.shape[1]):
+        y = moe_mod.moe_local(p["moe"], sp["moe"], h, cfg.moe, cfg.act,
+                              plan)
+        if "mlp" in p:
+            y = y + _mlp(p["mlp"], sp["mlp"], h, cfg, plan, tail)
+        return y
 
 
 def _no_named_mesh(mesh) -> None:
@@ -227,23 +256,28 @@ def block_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   causal: bool = True,
                   enc_out: torch.Tensor | None = None, *, mesh=None,
                   plan: Plan = LOCAL, specs=WHOLE,
-                  tail: bool = False) -> torch.Tensor:
+                  tail: bool = False, layer: int = 0) -> torch.Tensor:
     """Pre-norm mixer (+ cross-attention) + pre-norm FFN on this rank's
     shards (``p`` placed by ``specs``; one device by default, ``mesh``
     None or a list).  ``tail``: this is the last layer of a super-block,
     so its last projection feeds only the block's output (remat "dots"
-    recomputes it)."""
+    recomputes it).  ``layer``: the block's index in the stack, for its
+    spans."""
     _no_named_mesh(mesh)
     sp = specs
     h = rms_norm(x, plan.full(p["norm1"], sp["norm1"]), cfg.norm_eps)
     mixer_tail = tail and ffn_kind == "none"
     if mixer_kind == "mamba":
-        x = x + _mamba(p["mamba"], sp["mamba"], h, cfg, plan, mixer_tail)
+        with trace.span("model.mamba", cat="model", layer=layer,
+                        tokens=h.shape[0] * h.shape[1], phase="prefill"):
+            y = _mamba(p["mamba"], sp["mamba"], h, cfg, plan, mixer_tail)
+        x = _residual(x, y, cfg)
     else:
         window = cfg.sliding_window if mixer_kind == "local" else 0
-        x = x + _attention(p["attn"], sp["attn"], h, cfg, plan, positions,
-                           _rope_theta(cfg, mixer_kind), causal, window,
-                           mixer_tail, use_rope=cfg.use_rope)
+        x = _residual(x, _attention(
+            p["attn"], sp["attn"], h, cfg, plan, positions,
+            _rope_theta(cfg, mixer_kind), causal, window, mixer_tail,
+            use_rope=cfg.use_rope, scale=_attn_scale(cfg)), cfg)
     if enc_out is not None and "cross" in p:
         h = rms_norm(x, plan.full(p["norm_cross"], sp["norm_cross"]),
                      cfg.norm_eps)
@@ -253,7 +287,8 @@ def block_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if ffn_kind == "none":
         return x
     h = rms_norm(x, plan.full(p["norm2"], sp["norm2"]), cfg.norm_eps)
-    return x + _ffn(p, sp, h, cfg, plan, ffn_kind, tail)
+    return _residual(x, _ffn(p, sp, h, cfg, plan, ffn_kind, tail, layer),
+                     cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -294,15 +329,19 @@ def _shard_index(plan: Plan, axes) -> tuple[int, int]:
 
 
 def _attend_seq_split(q, kv: dict, pos: int, ring: bool, offset: int,
-                      length: int, plan: Plan, axes):
+                      length: int, plan: Plan, axes,
+                      scale: float | None = None):
     """q [B, 1, H, hd] against this rank's slice of the cache positions
     (``offset`` on, of ``length``): the softmax's max, sum and weighted
-    values combined over ``axes`` (flash-decoding), in fp32."""
+    values combined over ``axes`` (flash-decoding), in fp32; scores
+    scaled by ``scale`` (None: hd ** -0.5)."""
     k, v = kv["k"], kv["v"]
     n_rep = q.shape[2] // k.shape[2]
     k, v = attn._repeat_kv(k, n_rep), attn._repeat_kv(v, n_rep)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     sc = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                      k.to(torch.float32)) * q.shape[-1] ** -0.5
+                      k.to(torch.float32)) * scale
     valid = min(pos + 1, length) if ring else pos + 1
     idx = offset + torch.arange(k.shape[1], device=q.device)
     sc = sc.masked_fill(idx >= valid, attn.NEG_INF)
@@ -367,11 +406,12 @@ def _decode_attention(pa, sa, h, kv: dict, kv_spec, cfg: ModelConfig,
         if slot // local_len == idx:         # this rank holds the slot
             kv["k"][:, slot % local_len] = k[:, 0].to(kv["k"].dtype)
             kv["v"][:, slot % local_len] = v[:, 0].to(kv["v"].dtype)
+    scale = _attn_scale(cfg)
     if seq_axes:
         o = _attend_seq_split(q, kv, pos, ring, idx * local_len, length,
-                              plan, seq_axes)
+                              plan, seq_axes, scale=scale)
     else:
-        o = attn.attend_decode(q, kv, pos, ring=ring)
+        o = attn.attend_decode(q, kv, pos, ring=ring, scale=scale)
     wo = mine("wo", plan.full(pa["wo"], sa["wo"], gather_model=not heads), 0)
     y = o.reshape(b, 1, -1) @ wo
     return plan.psum_model(y) if heads else y
@@ -400,22 +440,24 @@ def _mamba_decode(pm, sm, h, state: dict, st_spec, cfg: ModelConfig,
 def block_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
                  mixer_kind: str, ffn_kind: str, pos: int, *, mesh=None,
                  plan: Plan = LOCAL, specs=WHOLE,
-                 cache_specs=WHOLE) -> torch.Tensor:
+                 cache_specs=WHOLE, layer: int = 0) -> torch.Tensor:
     """One-token step.  x [B, 1, d]; ``pos`` an int.  Writes this token's
     state into ``cache`` (this rank's shard, placed by ``cache_specs``) in
-    place."""
+    place.  ``layer``: the block's index in the stack, for its spans."""
     _no_named_mesh(mesh)
     sp, cs = specs, cache_specs
     h = rms_norm(x, plan.full(p["norm1"], sp["norm1"]), cfg.norm_eps)
     if mixer_kind == "mamba":
-        x = x + _mamba_decode(p["mamba"], sp["mamba"], h, cache["mamba"],
+        with trace.span("model.mamba", cat="model", layer=layer,
+                        tokens=h.shape[0], phase="decode"):
+            y = _mamba_decode(p["mamba"], sp["mamba"], h, cache["mamba"],
                               cs["mamba"], cfg, plan)
+        x = _residual(x, y, cfg)
     else:
-        x = x + _decode_attention(p["attn"], sp["attn"], h, cache["kv"],
-                                  cs["kv"]["k"], cfg, plan, pos,
-                                  _rope_theta(cfg, mixer_kind),
-                                  ring=mixer_kind == "local",
-                                  use_rope=cfg.use_rope)
+        x = _residual(x, _decode_attention(
+            p["attn"], sp["attn"], h, cache["kv"], cs["kv"]["k"], cfg, plan,
+            pos, _rope_theta(cfg, mixer_kind), ring=mixer_kind == "local",
+            use_rope=cfg.use_rope), cfg)
     if "cross_kv" in cache and "cross" in p:
         h = rms_norm(x, plan.full(p["norm_cross"], sp["norm_cross"]),
                      cfg.norm_eps)
@@ -428,4 +470,5 @@ def block_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     if ffn_kind == "none":
         return x
     h = rms_norm(x, plan.full(p["norm2"], sp["norm2"]), cfg.norm_eps)
-    return x + _ffn(p, sp, h, cfg, plan, ffn_kind)
+    return _residual(x, _ffn(p, sp, h, cfg, plan, ffn_kind, layer=layer),
+                     cfg)

@@ -244,6 +244,8 @@ def _embed_scaled(cfg: ModelConfig, params: Params, specs, tokens,
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype_of(
             cfg.compute_dtype), device=x.device)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     return x
 
 
@@ -257,7 +259,10 @@ def _logits(cfg: ModelConfig, params: Params, specs, x, plan: Plan):
     w = plan.full(w, sw)
     if plan.split(sw):
         x = plan.sum_grad(x, (MODEL_AXIS,))
-    return x @ (w.T if cfg.tie_embeddings else w)
+    logits = x @ (w.T if cfg.tie_embeddings else w)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
 
 
 def _unstack_spec(tree):
@@ -280,11 +285,12 @@ def _run_stack(cfg: ModelConfig, params: Params, specs, x, positions,
     sb_specs = [_unstack_spec(specs[stack_key][f"pos_{i}"])
                 for i in range(len(pattern))] if has_stack else []
 
-    def sb_body(x, sb_params):
+    def sb_body(x, sb_params, first):
         for i, (mk, fk) in enumerate(pattern):
             x = blk.block_forward(sb_params[i], x, cfg, mk, fk, positions,
                                   causal=causal, enc_out=enc_out, plan=plan,
-                                  specs=sb_specs[i], tail=i == last)
+                                  specs=sb_specs[i], tail=i == last,
+                                  layer=first + i)
         return x
 
     body = remat_wrap(sb_body, cfg)
@@ -292,12 +298,13 @@ def _run_stack(cfg: ModelConfig, params: Params, specs, x, positions,
         per_pos = [_unstack(params[stack_key][f"pos_{i}"], n_sb)
                    for i in range(len(pattern))]
         for sb in range(n_sb):
-            x = body(x, [p[sb] for p in per_pos])
+            x = body(x, [p[sb] for p in per_pos], sb * len(pattern))
     for j in range(n_rest):
         mk, fk = pattern[j % len(pattern)]
         x = blk.block_forward(params[f"rest_{j}"], x, cfg, mk, fk,
                               positions, causal=causal, enc_out=enc_out,
-                              plan=plan, specs=specs[f"rest_{j}"])
+                              plan=plan, specs=specs[f"rest_{j}"],
+                              layer=n_sb * len(pattern) + j)
     return x
 
 
@@ -393,13 +400,15 @@ def _decode_local(cfg: ModelConfig, params: Params, specs, cache: dict,
             for i, (mk, fk) in enumerate(pattern):
                 p_i, c_i, s_i, cs_i = per_pos[i]
                 x = blk.block_decode(p_i[sb], x, c_i[sb], cfg, mk, fk, pos,
-                                     plan=plan, specs=s_i, cache_specs=cs_i)
+                                     plan=plan, specs=s_i, cache_specs=cs_i,
+                                     layer=sb * len(pattern) + i)
     for j in range(n_rest):
         mk, fk = pattern[j % len(pattern)]
         x = blk.block_decode(params[f"rest_{j}"], x, cache[f"rest_{j}"],
                              cfg, mk, fk, pos, plan=plan,
                              specs=specs[f"rest_{j}"],
-                             cache_specs=c_specs[f"rest_{j}"])
+                             cache_specs=c_specs[f"rest_{j}"],
+                             layer=n_sb * len(pattern) + j)
     x = rms_norm(x, plan.full(params["final_norm"], specs["final_norm"]),
                  cfg.norm_eps)
     return _logits(cfg, params, specs, x[:, 0], plan)

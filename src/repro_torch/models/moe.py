@@ -22,6 +22,13 @@ the TP body on one device, without collectives.  Inside
 :func:`repro_torch.apc.layers.ap_serving` the experts run on the AP
 instead (:func:`moe_ffn_ap`).
 
+A dropless configuration (``MoECfg.dropless``, granite's) takes the
+capacity route at a capacity of the token count: a token's k experts are
+distinct, so no expert receives more pairs than there are tokens.  Each
+call adds its routed pairs (tokens x k) to the registry counter
+``moe.routed_pairs`` and the rows its expert products compute, padding
+included, to ``moe.expert_rows`` (both from shapes, no device sync).
+
 The collectives (:mod:`.collectives`) backpropagate as the reference's
 transposes: the router's grads are summed over the data axes, the
 experts' x's over "model", a weight gathered over "data" takes its grads
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from ..apc.metrics import get_registry
 from ..configs.base import MoECfg
 from .collectives import LOCAL, WHOLE, GatherOutput, Plan, all_to_all
 from .common import (MODEL_AXIS, act_fn, dense_init, is_named_mesh,
@@ -98,7 +106,17 @@ def _expert_ffn(buf: torch.Tensor, w1, w3, w2, act: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _capacity(t: int, cfg: MoECfg) -> int:
+    """Pairs an expert takes from ``t`` tokens: all of them where the
+    configuration is dropless, else the reference's capacity."""
+    if cfg.dropless:
+        return t
     return max(8, int(t * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
+
+
+def _count(pairs: int, rows: int) -> None:
+    reg = get_registry()
+    reg.counter("moe.routed_pairs").inc(pairs)
+    reg.counter("moe.expert_rows").inc(rows)
 
 
 def _moe_tp_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str,
@@ -114,6 +132,7 @@ def _moe_tp_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str,
     gates, experts = _route(x2d, router, cfg)
     e = cfg.n_experts
     capacity = _capacity(t, cfg)
+    _count(t * cfg.top_k, e * capacity)
     slot = _dispatch_indices(experts, e, capacity).long()
     # scatter tokens (duplicated per k) into the capacity buffer; every
     # dropped pair lands on the extra last row, which is discarded
@@ -151,6 +170,7 @@ def _moe_ep_core(x, router, w1, w3, w2, *, cfg: MoECfg, act: str,
     e_local = e // tp_size
     # capacity per (destination shard, local expert) buffer
     capacity = _capacity(t, cfg)
+    _count(t * cfg.top_k, e * capacity)
     slot = _dispatch_indices(experts, e, capacity).long()  # global experts
     buf = x.new_zeros((e * capacity + 1, d))
     buf[slot] = torch.repeat_interleave(x2d, cfg.top_k, dim=0)
@@ -216,6 +236,7 @@ def moe_ffn_ap(p: dict, x: torch.Tensor, cfg: MoECfg, act: str,
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
     gates, experts = _route(x2d, p["router"], cfg)
+    _count(b * s * cfg.top_k, b * s * cfg.top_k)
     w1l = ctx.expert_linears("moe.w1", p["w1"], label="moe.w1.")
     w3l = ctx.expert_linears("moe.w3", p["w3"], label="moe.w3.")
     w2l = ctx.expert_linears("moe.w2", p["w2"], label="moe.w2.")
@@ -236,9 +257,9 @@ REF_SPECS = {
 def moe_ffn(p: dict, x: torch.Tensor, cfg: MoECfg, act: str, *,
             mesh=None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]: route, dispatch at capacity
-    ``max(8, int(T*k*cf/E))`` (T: the tokens of one data shard under
-    "tp", of one (data x model) slice under "ep"), run the experts,
-    combine; on the AP inside ``ap_serving``.  On a named mesh
+    ``max(8, int(T*k*cf/E))``, or T where dropless (T: the tokens of one
+    data shard under "tp", of one (data x model) slice under "ep"), run
+    the experts, combine; on the AP inside ``ap_serving``.  On a named mesh
     :func:`moe_local` runs under ``local_map``: ``x`` over the data axes
     (where they divide its batch), each DTensor weight as placed; a plain
     weight (the same on every rank) takes the reference's ``shard_map``

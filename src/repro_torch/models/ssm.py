@@ -8,13 +8,19 @@ Per head h with scalar decay a_t = exp(dt_t * A_h),
 computed chunk-parallel: within a chunk of length L the quadratic
 "attention-like" term is an einsum, and a Python loop over the S/L chunks
 carries the inter-chunk state (one [B,H,N,P] tensor), in fp32.  Decode is
-the O(1) single-step recurrence.
+the O(1) single-step recurrence; each step adds the state and conv-state
+bytes it reads and writes once to the registry counter
+``ssm.state_bytes`` (from shapes, no device sync).
+
+The depthwise conv carries a bias where the params hold ``conv_b``
+(:func:`init_mamba` makes one under ``SSMCfg.conv_bias``: granite's).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..apc.metrics import get_registry
 from ..configs.base import SSMCfg
 from .common import dense_init, rms_norm, unread_dot
 
@@ -28,7 +34,7 @@ def init_mamba(gen: torch.Generator, d_model: int, cfg: SSMCfg,
     conv_ch = d_in + 2 * cfg.n_groups * cfg.d_state
     proj_out_dim = 2 * d_in + 2 * cfg.n_groups * cfg.d_state + n_heads
     dev = gen.device
-    return {
+    p = {
         "in_proj": dense_init(gen, (d_model, proj_out_dim), 0, dtype),
         "conv_w": dense_init(gen, (cfg.conv_width, conv_ch), 0, dtype),
         "dt_bias": torch.zeros((n_heads,), dtype=dtype, device=dev),
@@ -37,6 +43,9 @@ def init_mamba(gen: torch.Generator, d_model: int, cfg: SSMCfg,
         "norm": torch.ones((d_in,), dtype=dtype, device=dev),
         "out_proj": dense_init(gen, (d_in, d_model), 0, dtype),
     }
+    if cfg.conv_bias:
+        p["conv_b"] = torch.zeros((conv_ch,), dtype=dtype, device=dev)
+    return p
 
 
 def _split_proj(proj, d_in, g, n, n_heads):
@@ -46,14 +55,16 @@ def _split_proj(proj, d_in, g, n, n_heads):
     return z, xbc, dt
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv, width w.shape[0]; x [B, S, C]."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv, width w.shape[0]; x [B, S, C]; ``bias`` [C]
+    added where given."""
     width = w.shape[0]
     pad = F.pad(x, (0, 0, width - 1, 0))
     out = 0
     for i in range(width):
         out = out + pad[:, i: i + x.shape[1], :] * w[i][None, None, :]
-    return out
+    return out if bias is None else out + bias
 
 
 def _ssd_chunked(x, dt, a_log, b_mat, c_mat, cfg: SSMCfg):
@@ -109,7 +120,7 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: SSMCfg, d_model: int,
     lead = x.shape[:2]
     proj = x @ p["in_proj"]
     z, xbc, dt = _split_proj(proj, d_in, g, n, n_heads)
-    xbc = F.silu(_causal_conv(xbc, p["conv_w"]))
+    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p.get("conv_b")))
     xs = xbc[..., :d_in]
     b_mat = xbc[..., d_in: d_in + g * n].reshape(*lead, g, n)
     c_mat = xbc[..., d_in + g * n:].reshape(*lead, g, n)
@@ -155,7 +166,10 @@ def mamba_decode_step(p: dict, x: torch.Tensor, cache: dict, cfg: SSMCfg,
                          xbc[:, None, :].to(conv_dt)], dim=1)
     w = p["conv_w"]                                    # [W, C]
     mix_dt = torch.promote_types(conv_dt, w.dtype)
-    xbc = F.silu(torch.einsum("bwc,wc->bc", conv_in.to(mix_dt), w.to(mix_dt)))
+    xbc = torch.einsum("bwc,wc->bc", conv_in.to(mix_dt), w.to(mix_dt))
+    if "conv_b" in p:
+        xbc = xbc + p["conv_b"].to(mix_dt)
+    xbc = F.silu(xbc)
     new_conv = conv_in[:, 1:, :]
     xs = xbc[:, :d_in]
     b_mat = xbc[:, d_in: d_in + g * n].reshape(-1, g, n)
@@ -174,4 +188,6 @@ def mamba_decode_step(p: dict, x: torch.Tensor, cache: dict, cfg: SSMCfg,
     y = y.reshape(-1, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], norm_eps)
     y = (y @ p["out_proj"])[:, None, :]
+    get_registry().counter("ssm.state_bytes").inc(2 * sum(
+        t.numel() * t.element_size() for t in cache.values()))
     return y, {"conv": new_conv, "ssm": h_new}

@@ -7,6 +7,8 @@ card and skip on a host without one; run them on a machine with a card:
 ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_decode_attention.py``.  The others run on the CPU, where
 every call takes the einsum path."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -137,16 +139,16 @@ def test_dispatch_routes_by_the_kernel_terms(monkeypatch, hd, kernel):
     bit for bit."""
     calls = []
 
-    def plain(q, k, v, n_valid):
-        calls.append(n_valid)
-        return dref.decode_attention_ref(q, k, v, n_valid)
+    def plain(q, k, v, n_valid, scale=None):
+        calls.append((n_valid, scale))
+        return dref.decode_attention_ref(q, k, v, n_valid, scale)
 
     monkeypatch.setattr(dk, "supports", dk.takes)
     monkeypatch.setattr(dk, "decode_attention", plain)
     q, cache = _case(2, 8, 2, hd, 16, torch.bfloat16, seed=hd)
     before = _counts()
     got = attn.attend_decode(q, cache, 9, ring=False)
-    assert calls == ([10] if kernel else [])
+    assert calls == ([(10, None)] if kernel else [])
     assert _delta(before) == {"kernel": 0, "einsum": int(not kernel)}
     want = _todays_einsum_path(q, cache, 9, False)
     if kernel:
@@ -218,6 +220,37 @@ def test_split_shape_covers_every_tile_once():
             assert splits == 1
 
 
+@pytest.mark.parametrize("scale", [None, 1 / 128])
+def test_the_launch_takes_the_scale(monkeypatch, scale):
+    """The kernel's launch arguments on the CPU, the entry stubbed: the
+    scale is ``hd ** -0.5`` by default, the very float the launch has
+    always passed (so the cells that leave it bit-identical), and the
+    caller's where given."""
+    import types
+
+    from repro_torch.kernels import cuda_lib
+    launches = []
+
+    def entry(name):
+        assert name == "decode_attention"
+        return lambda *args: launches.append(args) or 0
+
+    monkeypatch.setattr(dk, "supports", dk.takes)
+    monkeypatch.setattr(dk, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(cuda_lib, "entry", entry)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    q, cache = _case(128, 32, 8, 128, 512, torch.bfloat16, seed=1)
+    dk.decode_attention(q, cache["k"], cache["v"], 300, scale=scale)
+    (args,) = launches
+    # q, k, v, out, part, 6 strides, b, h, hk, hd, n_valid, scale, ...
+    assert args[11:16] == (128, 32, 8, 128, 300)
+    assert type(args[16]) is float
+    assert args[16] == (128 ** -0.5 if scale is None else 1 / 128)
+
+
 def test_decode_step_counts_einsum_calls_on_the_cpu():
     """A bf16 decode step on the CPU: one einsum call per attention
     layer, no kernel call."""
@@ -267,6 +300,26 @@ def test_kernel_matches_the_einsum_path(dev, b, h, hk, hd, length):
                                               pos, ring)
             assert got.dtype == torch.bfloat16 and got.shape == q.shape
             _within_one_ulp(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length", [(1, 512), (128, 512)])
+def test_kernel_at_granites_scale(dev, b, length):
+    """GQA 32:8 (a group of 4 query heads), head 128, scores times 1/128
+    (granite's ``attention_multiplier``): within one bf16 ulp of the
+    einsum path at the same scale, every call a kernel call."""
+    q, cache = _case(b, 32, 8, 128, length, torch.bfloat16, seed=b,
+                     device=dev)
+    for pos in (0, 127, 300, length - 1):
+        before = _counts()
+        got = attn.attend_decode(q, cache, pos, False, scale=1 / 128)
+        assert _delta(before) == {"kernel": 1, "einsum": 0}
+        want = attn._attend_decode_einsum(q, cache["k"], cache["v"], pos,
+                                          False, 1 / 128)
+        _within_one_ulp(got, want)
+        if pos:                      # one slot: softmax 1 at any scale
+            assert not torch.equal(got, attn.attend_decode(q, cache, pos,
+                                                           False))
 
 
 @pytest.mark.cuda

@@ -147,9 +147,31 @@ def _close_bf16(got, want, want32, tol=TOL["bfloat16"]) -> bool:
     return False
 
 
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each element's magnitude (0 at 0)."""
+    _, e = np.frexp(x)
+    return np.where(x == 0, 0.0, np.ldexp(1.0, e - 8))
+
+
+def _close_bf16_leaf(mine, want, tol):
+    """A bf16 cache leaf: within ``tol`` (allclose) or within one bf16 ulp
+    of ``want``.  Both sides compute the leaf in fp32 and round it to
+    bf16; values that agree in fp32 to well within ``tol`` may still round
+    to the two bf16 neighbours of their midpoint, one ulp apart (2**-13 =
+    1.22e-4 at 0.0163, more than 1e-4), and which one each takes depends
+    on the host's BLAS."""
+    got, want = _f32(mine), _f32(want)
+    bound = np.maximum(tol + tol * np.abs(want), _bf16_ulp(want))
+    bad = np.abs(got - want) > bound
+    assert not bad.any(), (
+        f"{int(bad.sum())} of {bad.size} bf16 elements off by more than "
+        f"max(allclose {tol}, one ulp); worst {np.abs(got - want).max()}")
+
+
 def _close_trees(mine: dict, want: dict, tol):
-    """Leaf by leaf within ``tol``; ``tol=None`` checks shapes and that
-    every value is finite."""
+    """Leaf by leaf within ``tol``, a bf16 leaf also within one bf16 ulp
+    (:func:`_close_bf16_leaf`); ``tol=None`` checks shapes and that every
+    value is finite."""
     assert set(mine) == set(want)
     for k, v in mine.items():
         if isinstance(v, dict):
@@ -158,6 +180,8 @@ def _close_trees(mine: dict, want: dict, tol):
         assert tuple(v.shape) == tuple(want[k].shape), k
         if tol is None:
             assert bool(torch.isfinite(v.float()).all()), k
+        elif v.dtype == torch.bfloat16:
+            _close_bf16_leaf(v, want[k], tol)
         else:
             _close(v, want[k], tol)
 
